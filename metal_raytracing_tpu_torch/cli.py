@@ -1,8 +1,8 @@
 """Headless CLI of the port: progressive render to PNG/HDR with checkpoints.
 
 Usage:
-    python -m metal_raytracing_tpu_torch render --scene coatball \
-        --size 1024x768 --spp 8 --out coatball.png
+    python -m metal_raytracing_tpu_torch render --scene dragon \
+        --size 1024x1024 --spp 8 --out dragon.png
     python -m metal_raytracing_tpu_torch scenes
 
 ``--device`` defaults to ``cuda``; there is no silent fallback to the CPU
@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     r = sub.add_parser("render", help="render a scene to an image")
-    r.add_argument("--scene", default="coatball", choices=sorted(SCENES))
+    r.add_argument("--scene", default="dragon", choices=sorted(SCENES))
     r.add_argument("--size", type=_parse_size, default=(512, 512),
                    metavar="WxH")
     r.add_argument("--spp", type=int, default=4, help="samples per pixel")

@@ -23,134 +23,18 @@
 // broadcasts.  Warp-cooperative walks, persistent blocks, TMA staging of
 // the planes and wgmma are later work.
 //
-// Numerics match the plain PyTorch versions op for op (build with
-// -fmad=false and IEEE division): t = (n.v0 - n.o) * rcp with rcp = 1/den
-// refined by one Newton step, barycentrics u = U.p + uw, v = V.p + vw at
-// p = o + t d, hit when u >= 0, v >= 0, u + v <= 1, t > 1e-6 (and t <= max_t
-// for any hit).  A degenerate padding triangle has den = 0, so t is NaN and
-// every comparison is false.  The closest hit is the minimum packed key
-// (bits(t) & ~0x1FF) | in-cluster index, the TPU kernels' contract.
+// Numerics and the packed key: see trace_common.cuh.  The closest hit is
+// the minimum packed key (bits(t) & ~0x1FF) | in-cluster index, the TPU
+// kernels' contract.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trace_common.cuh"
 
 namespace {
 
+using namespace mrt;
+
 constexpr int kThreads = 128;
 constexpr int kMaxClusters = 128;
-constexpr int kIdxMask = 0x1FF;
-constexpr float kBigT = 1e30f;
-
-__device__ __forceinline__ int miss_key() {
-  return __float_as_int(kBigT) & ~kIdxMask;
-}
-
-__device__ __forceinline__ float key_to_t(int key) {
-  return __int_as_float(key & ~kIdxMask);
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float safe_inv(float v) {
-  const float eps = 1e-12f;
-  float s = fabsf(v) < eps ? (v < 0.0f ? -eps : eps) : v;
-  return 1.0f / s;
-}
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int r) {
-  Ray ray;
-  ray.ox = o[3 * r + 0];
-  ray.oy = o[3 * r + 1];
-  ray.oz = o[3 * r + 2];
-  ray.dx = d[3 * r + 0];
-  ray.dy = d[3 * r + 1];
-  ray.dz = d[3 * r + 2];
-  ray.ix = safe_inv(ray.dx);
-  ray.iy = safe_inv(ray.dy);
-  ray.iz = safe_inv(ray.dz);
-  return ray;
-}
-
-// Slab test of one box [lo(3), hi(3)] (trace_pallas._slab_cols); an
-// inverted padding box fails the hi >= lo term.  Writes max(t_entry, 0).
-__device__ __forceinline__ bool slab(const float* box, const Ray& ray,
-                                     float t_max, float* tn_out) {
-  float lox = box[0], loy = box[1], loz = box[2];
-  float hix = box[3], hiy = box[4], hiz = box[5];
-  float t0x = (lox - ray.ox) * ray.ix;
-  float t1x = (hix - ray.ox) * ray.ix;
-  float t0y = (loy - ray.oy) * ray.iy;
-  float t1y = (hiy - ray.oy) * ray.iy;
-  float t0z = (loz - ray.oz) * ray.iz;
-  float t1z = (hiz - ray.oz) * ray.iz;
-  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  *tn_out = fmaxf(tn, 0.0f);
-  return (tn <= tf) && (tf >= 0.0f) && (tn <= t_max) && (hix >= lox);
-}
-
-// Baldwin-Weber test of triangle slot j against the (12, T) plane rows
-// (trace_pallas._mt_block).  Returns the hit distance in *t.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tri, int T,
-                                        int j, const Ray& ray, float* t_out) {
-  float nx = __ldg(tri + 0 * T + j), ny = __ldg(tri + 1 * T + j);
-  float nz = __ldg(tri + 2 * T + j), dc = __ldg(tri + 3 * T + j);
-  float ux = __ldg(tri + 4 * T + j), uy = __ldg(tri + 5 * T + j);
-  float uz = __ldg(tri + 6 * T + j), uw = __ldg(tri + 7 * T + j);
-  float vx = __ldg(tri + 8 * T + j), vy = __ldg(tri + 9 * T + j);
-  float vz = __ldg(tri + 10 * T + j), vw = __ldg(tri + 11 * T + j);
-  float den = nx * ray.dx + ny * ray.dy + nz * ray.dz;
-  float rcp = 1.0f / den;
-  rcp = rcp * (2.0f - den * rcp);
-  float t = (dc - (nx * ray.ox + ny * ray.oy + nz * ray.oz)) * rcp;
-  float px = ray.ox + t * ray.dx;
-  float py = ray.oy + t * ray.dy;
-  float pz = ray.oz + t * ray.dz;
-  float u = ux * px + uy * py + uz * pz + uw;
-  float v = vx * px + vy * py + vz * pz + vw;
-  *t_out = t;
-  return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 1e-6f);
-}
-
-__device__ __forceinline__ void load_boxes(const float* __restrict__ clu,
-                                           int ncp, float* s_box) {
-  for (int i = threadIdx.x; i < ncp * 6; i += blockDim.x) s_box[i] = clu[i];
-  __syncthreads();
-}
-
-// Nearest unvisited cluster whose slab is hit with entry below `bound`
-// (strictly), or -1.  Ties go to the lower cluster index.
-__device__ __forceinline__ int pick_cluster(const float* s_box, int ncp,
-                                            const Ray& ray, float t_max,
-                                            float bound,
-                                            const unsigned (&visited)[4]) {
-  int best = -1;
-  float best_tn = bound;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    unsigned vw = visited[w];
-    for (int b = 0; b < 32; ++b) {
-      int k = w * 32 + b;
-      if (k >= ncp) break;
-      if ((vw >> b) & 1u) continue;
-      float tn;
-      if (slab(s_box + 6 * k, ray, t_max, &tn) && tn < best_tn) {
-        best_tn = tn;
-        best = k;
-      }
-    }
-  }
-  return best;
-}
-
-__device__ __forceinline__ void mark(unsigned (&visited)[4], int k) {
-#pragma unroll
-  for (int w = 0; w < 4; ++w)
-    if (w == (k >> 5)) visited[w] |= 1u << (k & 31);
-}
 
 // Closest hit (replaces _closest_flat_kernel, trace_pallas.py:1848).  One
 // thread per ray: start from the host seed key (the global set's best hit,
@@ -167,29 +51,21 @@ closest_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     int c_size, int T, int g_base, float* __restrict__ t_out,
                     int* __restrict__ tri_out) {
   __shared__ float s_box[kMaxClusters * 6];
-  load_boxes(clu, ncp, s_box);
+  load_shared(clu, ncp * 6, s_box);
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
 
-  const int init_key = miss_key() | kIdxMask;
-  int key = seed ? seed[r] : init_key;
+  int key = seed ? seed[r] : init_key();
   int base = g_base;
   if (mask[r]) {
     Ray ray = load_ray(o, d, r);
     unsigned visited[4] = {0u, 0u, 0u, 0u};
     while (true) {
-      int k = pick_cluster(s_box, ncp, ray, kBigT, key_to_t(key), visited);
+      int k = pick_box(s_box, ncp, ray, kBigT, key_to_t(key), visited);
       if (k < 0) break;
       mark(visited, k);
       int cbase = k * c_size;
-      int vkey = init_key;
-      for (int j = 0; j < c_size; ++j) {
-        float t;
-        if (tri_hit(tri, T, cbase + j, ray, &t)) {
-          int kj = (__float_as_int(t) & ~kIdxMask) | j;
-          vkey = min(vkey, kj);
-        }
-      }
+      int vkey = dense_closest(tri, T, cbase, c_size, ray);
       if (vkey < key) {
         key = vkey;
         base = cbase;
@@ -214,7 +90,7 @@ any_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 int T, int g_base, int g_slots,
                 bool* __restrict__ occ_out) {
   __shared__ float s_box[kMaxClusters * 6];
-  load_boxes(clu, ncp, s_box);
+  load_shared(clu, ncp * 6, s_box);
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
 
@@ -223,20 +99,13 @@ any_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
     Ray ray = load_ray(o, d, r);
     float tmax = max_t[r];
     // The global slots first, as the TPU kernel's dense global chunk test.
-    for (int j = g_base; j < g_base + g_slots && !occ; ++j) {
-      float t;
-      occ = tri_hit(tri, T, j, ray, &t) && (t <= tmax);
-    }
+    occ = dense_any(tri, T, g_base, g_slots, ray, tmax);
     unsigned visited[4] = {0u, 0u, 0u, 0u};
     while (!occ) {
-      int k = pick_cluster(s_box, ncp, ray, tmax, kBigT, visited);
+      int k = pick_box(s_box, ncp, ray, tmax, kBigT, visited);
       if (k < 0) break;
       mark(visited, k);
-      int cbase = k * c_size;
-      for (int j = 0; j < c_size && !occ; ++j) {
-        float t;
-        occ = tri_hit(tri, T, cbase + j, ray, &t) && (t <= tmax);
-      }
+      occ = dense_any(tri, T, k * c_size, c_size, ray, tmax);
     }
   }
   occ_out[r] = occ;
@@ -275,7 +144,7 @@ int launch_any_flat(const void* o, const void* d, const void* max_t,
   return (int)cudaGetLastError();
 }
 
-const char* trace_flat_error_string(int err) {
+const char* kernels_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``.  The build runs at first
-use, keyed by a hash of the source and the flags, into ``build/kernels/`` at
-the root of the checkout, so a fresh checkout builds its own kernels.
-Nothing is built or imported when this module is imported.
+Every source is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` process
+per source, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, keyed by a hash of the sources, the headers and the
+flags, into ``build/kernels/`` at the root of the checkout, so a fresh
+checkout builds its own kernels.  Nothing is built or imported when this
+module is imported.
 
 ``-fmad=false`` keeps the kernels' float arithmetic op for op equal to their
 plain PyTorch versions (no fused multiply-add contraction); division stays
@@ -14,6 +16,7 @@ IEEE (no ``--use_fast_math``).
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,11 +26,11 @@ import time
 from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "trace_flat.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-fmad=false", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -51,25 +54,50 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
+def sources() -> list:
+    """The kernel sources, one object each."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
 def _library_path() -> str:
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"trace_flat_{digest.hexdigest()[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"kernels_{digest.hexdigest()[:16]}.so")
 
 
 def _build(out: str) -> None:
     global build_log, build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    srcs = sources()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{src} ({p.returncode}):\n{log}"
+              for src, p, log in zip(srcs, procs, logs) if p.returncode]
+    tmp = f"{out}.{tag}"
+    if not failed:
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            failed.append(f"link ({link.returncode}):\n"
+                          f"{link.stdout}{link.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:
@@ -89,7 +117,13 @@ def load_library() -> ctypes.CDLL:
         lib.launch_any_flat.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                         p, p]
         lib.launch_any_flat.restype = i
-        lib.trace_flat_error_string.argtypes = [i]
-        lib.trace_flat_error_string.restype = ctypes.c_char_p
+        lib.launch_closest_hier.argtypes = [p] * 7 + [i] * 6 + [p] * 3
+        lib.launch_closest_hier.restype = i
+        lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 2
+        lib.launch_any_hier.restype = i
+        lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]
+        lib.launch_broadphase.restype = i
+        lib.kernels_error_string.argtypes = [i]
+        lib.kernels_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib

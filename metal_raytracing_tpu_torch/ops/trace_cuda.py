@@ -1,24 +1,23 @@
-"""Cluster traversal on Hopper: the flat closest-hit and any-hit kernels.
+"""Cluster traversal on Hopper: the closest-hit and any-hit kernels.
 
 The port's counterpart of ``metal_raytracing_tpu.ops.trace_pallas``.  It
 holds the scene-plane packing the kernels read, the packed-key helpers, the
-host-side global-set passes, and two kernel wrappers:
+host-side global-set passes, and two kernel wrappers that pick the flat or
+the hierarchical walk as ``trace_pallas._use_flat`` does (flat up to 128
+padded clusters, or as ``flat=`` says):
 
 - :func:`trace_closest` launches ``closest_flat_kernel``
-  (``csrc/trace_flat.cu``), the counterpart of the TPU kernel
-  ``_closest_flat_kernel``;
-- :func:`trace_any` launches ``any_flat_kernel``, the counterpart of
-  ``_any_flat_kernel``.
+  (``csrc/trace_flat.cu``, the TPU kernel ``_closest_flat_kernel``) or
+  ``closest_hier_kernel`` (``csrc/trace_hier.cu``, ``_closest_kernel``);
+- :func:`trace_any` launches ``any_flat_kernel`` (``_any_flat_kernel``) or
+  ``any_hier_kernel`` (``_any_kernel``).
 
 Each wrapper runs its plain PyTorch version (:func:`closest_flat_ref`,
-:func:`any_flat_ref`) for tensors on the CPU, and launches its kernel for
-tensors on a CUDA device, where it never falls back.  Each keeps a plain
-integer launch count (``trace_closest.launches``, ``trace_any.launches``)
-that grows by one per kernel launch.
-
-The kernels take the flat path only: scenes with at most 128 padded clusters
-(:func:`_use_flat`).  Larger scenes need the hierarchical kernels, which are
-not ported yet (ROADMAP.md, Queue 2).
+:func:`any_flat_ref`, which compute the function of both walks) for tensors
+on the CPU, and launches a kernel for tensors on a CUDA device, where it
+never falls back.  Each keeps plain integer launch counts that grow by one
+per kernel launch: ``trace_closest.launches`` and ``trace_any.launches``
+(flat), ``trace_closest.launches_hier`` and ``trace_any.launches_hier``.
 
 **Outputs follow the TPU kernels' contract.**  A closest hit is the minimum
 over packed keys ``(bits(t) & ~IDX_MASK) | in-cluster index``: positive
@@ -43,9 +42,10 @@ from .intersect import BIG_T, Hit
 __all__ = ["pack_triangle_planes", "pack_scene_planes", "super_layout",
            "trace_closest", "trace_any", "closest_flat_ref", "any_flat_ref",
            "global_seed_keys", "global_any_hit", "recompute_tuv",
-           "IDX_BITS", "IDX_MASK"]
+           "reset_launch_counts", "IDX_BITS", "IDX_MASK"]
 
 NSP = 128  # maximum super count (the level-0 fan-out bound)
+MAX_PER_SUPER = 32  # clusters per super the hierarchical kernels take
 # Largest padded cluster count the flat kernels take (trace_pallas.py:2043).
 FLAT_MAX_CLUSTERS = 128
 N_TRI_PLANES = 12
@@ -243,15 +243,17 @@ def _ray_chunks(n: int, width: int):
 
 
 def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None):
-    """Plain version of ``closest_flat_kernel``: brute force over every
-    clustered triangle with the kernel's packed key, seed and hit test.
-    Returns ``(t_chop (N,) f32, tri (N,) i32)``.
+    """Plain version of ``closest_flat_kernel`` and ``closest_hier_kernel``:
+    both compute the minimum packed key over every clustered triangle from
+    the seed, which this takes by brute force with the kernels' packed key,
+    seed and hit test.  Returns ``(t_chop (N,) f32, tri (N,) i32)``.
 
     Ties: the seed wins a tie with a cluster, and the lower cluster index
-    wins among clusters.  The kernel walks clusters nearest-first instead,
-    so the two can pick different winners only among keys that tie after
-    the 512-ulp chop, where the walk may skip a cluster whose entry is not
-    below the running best."""
+    wins among clusters.  The kernels walk clusters nearest-first instead
+    (through supers, for the hierarchical one), so a kernel and this can
+    pick different winners only among keys that tie after the 512-ulp chop,
+    where the walk may skip a cluster whose entry is not below the running
+    best."""
     n = o.shape[0]
     c, nc = spec.cluster_size, spec.num_clusters
     dev = o.device
@@ -262,16 +264,17 @@ def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None):
                            device=dev)
     rows = tri[:, :nc * c]
     lane = torch.arange(c, dtype=torch.int32, device=dev).repeat(nc)
-    for s, e in _ray_chunks(n, nc * c):
-        t, hit = _plane_hits(o[s:e], d[s:e], rows)
-        hit &= mask[s:e, None]
+    live = mask.nonzero()[:, 0]  # a dead ray keeps its seed
+    for s, e in _ray_chunks(live.shape[0], nc * c):
+        r = live[s:e]
+        t, hit = _plane_hits(o[r], d[r], rows)
         key = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
         key = torch.where(hit, key, torch.full_like(key, _INIT_KEY))
         kmin, kidx = key.view(e - s, nc, c).amin(dim=2).min(dim=1)
-        take = kmin < key0[s:e]
-        best_key[s:e] = torch.where(take, kmin, key0[s:e])
-        best_base[s:e] = torch.where(take, kidx.to(torch.int32) * c,
-                                     best_base[s:e])
+        take = kmin < key0[r]
+        best_key[r] = torch.where(take, kmin, key0[r])
+        best_base[r] = torch.where(take, kidx.to(torch.int32) * c,
+                                   best_base[r])
     found = best_key < _MISS_KEY
     tri_id = torch.where(found, best_base + (best_key & IDX_MASK),
                          torch.full_like(best_base, -1))
@@ -279,16 +282,16 @@ def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None):
 
 
 def any_flat_ref(o, d, max_t, mask, tri, spec: BVHSpec):
-    """Plain version of ``any_flat_kernel``: is any triangle slot hit within
-    ``(1e-6, max_t]``?  The slots include the global set, which the TPU
-    kernel also dense-tests (ROADMAP.md, Queue 3).  Returns (N,) bool."""
-    n = o.shape[0]
-    width = spec.padded_triangles
-    occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
-    for s, e in _ray_chunks(n, width):
-        t, hit = _plane_hits(o[s:e], d[s:e], tri)
-        hit &= (t <= max_t[s:e, None]) & mask[s:e, None]
-        occ[s:e] = hit.any(dim=1)
+    """Plain version of ``any_flat_kernel`` and ``any_hier_kernel``, which
+    both compute whether any triangle slot is hit within ``(1e-6, max_t]``.
+    The slots include the global set, which the TPU kernels also dense-test
+    (ROADMAP.md, Queue 3).  Returns (N,) bool."""
+    occ = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    live = mask.nonzero()[:, 0]
+    for s, e in _ray_chunks(live.shape[0], spec.padded_triangles):
+        r = live[s:e]
+        t, hit = _plane_hits(o[r], d[r], tri)
+        occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)
     return occ
 
 
@@ -313,34 +316,62 @@ def _check_rays(o, d, mask, extra=()):
                              f"{x.dtype} {tuple(x.shape)}")
 
 
-def _cuda_args(spec: BVHSpec, clu, tri):
-    if not _use_flat(spec):
-        raise NotImplementedError("K3/K4 not yet ported — ROADMAP Queue 2")
+def _check_tables(device, **tables) -> None:
+    for name, x in tables.items():
+        if x.dtype != torch.float32 or x.device != device:
+            raise ValueError(f"{name} must be float32 on {device}, got "
+                             f"{x.dtype} on {x.device}")
+
+
+def _kernel_tables(spec: BVHSpec, sup, clu, tri, flat=None):
+    """``(hier, sup, clu, tri)``: the route :func:`_use_flat` picks and the
+    contiguous plane tables its kernel reads (the flat kernels read every
+    cluster box, the hierarchical ones the real supers and their
+    clusters).  Raises on tables the kernels do not take."""
+    hier = not _use_flat(spec, flat)
     if spec.cluster_size > (1 << IDX_BITS):
         raise ValueError(f"cluster_size {spec.cluster_size} does not fit the "
                          f"{IDX_BITS}-bit in-cluster index of the packed key")
-    cluf = clu.reshape(-1, 6).contiguous()
-    if cluf.shape[0] > FLAT_MAX_CLUSTERS or tri.shape[0] != N_TRI_PLANES:
-        raise ValueError(f"bad plane tables: clu {tuple(clu.shape)}, "
-                         f"tri {tuple(tri.shape)}")
-    return cluf, tri.contiguous()
+    _check_tables(tri.device, sup=sup, clu=clu)
+    if (clu.dim() != 3 or clu.shape[2] != 6 or sup.dim() != 2
+            or sup.shape[1] != 6 or sup.shape[0] < clu.shape[0]
+            or clu.shape[0] * clu.shape[1] < spec.num_clusters
+            or tri.dim() != 2 or tri.shape[0] != N_TRI_PLANES
+            or tri.shape[1] < spec.global_base + spec.padded_global):
+        raise ValueError(f"bad plane tables: sup {tuple(sup.shape)}, clu "
+                         f"{tuple(clu.shape)}, tri {tuple(tri.shape)}")
+    ns, s_per = clu.shape[0], clu.shape[1]
+    if hier and (ns > NSP or s_per > MAX_PER_SUPER):
+        raise ValueError(f"the hierarchical kernels take <= {NSP} supers of "
+                         f"<= {MAX_PER_SUPER} clusters, got {ns} x {s_per}")
+    if not hier and ns * s_per > FLAT_MAX_CLUSTERS:
+        raise ValueError(f"the flat kernels take <= {FLAT_MAX_CLUSTERS} "
+                         f"clusters, got {ns * s_per}")
+    return (hier, sup[:ns].contiguous(), clu.contiguous(), tri.contiguous())
 
 
 def _raise_on(err: int, lib, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.trace_flat_error_string(err).decode()}")
+                           f"{lib.kernels_error_string(err).decode()}")
 
 
-def trace_closest(o, d, mask, clu, tri, spec: BVHSpec, seed_key=None) -> Hit:
-    """Closest hit of each ray: ``closest_flat_kernel`` on a CUDA device,
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
+                  flat=None) -> Hit:
+    """Closest hit of each ray: ``closest_flat_kernel`` or
+    ``closest_hier_kernel`` on a CUDA device (``flat`` as
+    ``trace_pallas.trace_closest``: None picks by cluster count),
     :func:`closest_flat_ref` on the CPU.
 
-    ``clu`` (NS, S, 6) and ``tri`` (12, T) are the packed planes of
-    :func:`pack_scene_planes`; ``seed_key`` the per-ray host seed of
-    :func:`global_seed_keys` (computed here when the scene has a global set
-    and none is given).  Returns a :class:`Hit` whose ``t`` is the chopped
-    distance of the packed key (``u``/``v`` are zeros): the renderer
+    ``sup`` (nsp, 6), ``clu`` (NS, S, 6) and ``tri`` (12, T) are the packed
+    planes of :func:`pack_scene_planes`; ``seed_key`` the per-ray host seed
+    of :func:`global_seed_keys` (computed here when the scene has a global
+    set and none is given).  Returns a :class:`Hit` whose ``t`` is the
+    chopped distance of the packed key (``u``/``v`` are zeros): the renderer
     recomputes the exact t from the shade row."""
     if seed_key is None and spec.num_global:
         seed_key = global_seed_keys(o, d, mask, tri, spec)
@@ -353,20 +384,27 @@ def trace_closest(o, d, mask, clu, tri, spec: BVHSpec, seed_key=None) -> Hit:
     elif o.device.type == "cuda":
         from ._build import load_library
 
-        cluf, tri_c = _cuda_args(spec, clu, tri)
+        _check_tables(o.device, tri=tri)
+        hier, sup_c, clu_c, tri_c = _kernel_tables(spec, sup, clu, tri, flat)
         lib = load_library()
-        o_c, d_c = o.contiguous(), d.contiguous()
-        m_c = mask.contiguous()
+        o_c, d_c, m_c = o.contiguous(), d.contiguous(), mask.contiguous()
         s_c = None if seed_key is None else seed_key.contiguous()
         t = torch.empty((n,), dtype=torch.float32, device=o.device)
         tri_id = torch.empty((n,), dtype=torch.int32, device=o.device)
-        if n:
+        if n and hier:
+            err = lib.launch_closest_hier(
+                _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sup_c),
+                _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0], clu_c.shape[1],
+                spec.cluster_size, tri_c.shape[1], spec.global_base, _ptr(t),
+                _ptr(tri_id), _stream(o.device))
+            _raise_on(err, lib, "closest_hier_kernel")
+            trace_closest.launches_hier += 1
+        elif n:
             err = lib.launch_closest_flat(
-                _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(cluf),
-                _ptr(tri_c), n, cluf.shape[0], spec.cluster_size,
-                tri_c.shape[1], spec.global_base, _ptr(t), _ptr(tri_id),
-                ctypes.c_void_p(torch.cuda.current_stream(o.device)
-                                .cuda_stream))
+                _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(clu_c),
+                _ptr(tri_c), n, clu_c.shape[0] * clu_c.shape[1],
+                spec.cluster_size, tri_c.shape[1], spec.global_base, _ptr(t),
+                _ptr(tri_id), _stream(o.device))
             _raise_on(err, lib, "closest_flat_kernel")
             trace_closest.launches += 1
     else:
@@ -376,14 +414,18 @@ def trace_closest(o, d, mask, clu, tri, spec: BVHSpec, seed_key=None) -> Hit:
 
 
 trace_closest.launches = 0
+trace_closest.launches_hier = 0
 
 
-def trace_any(o, d, max_t, mask, clu, tri, spec: BVHSpec) -> torch.Tensor:
+def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
+              flat=None) -> torch.Tensor:
     """Occlusion of each ray segment ``(1e-6, max_t]``: ``any_flat_kernel``
-    on a CUDA device, :func:`any_flat_ref` on the CPU.  Returns (N,) bool.
+    or ``any_hier_kernel`` on a CUDA device (``flat`` as
+    :func:`trace_closest`), :func:`any_flat_ref` on the CPU.  Returns (N,)
+    bool.
 
-    Like the TPU kernel with ``seed_global=False``, the kernel still
-    dense-tests the global slots before its cluster walk."""
+    Like the TPU kernels with ``seed_global=False``, both kernels still
+    dense-test the global slots before their cluster walk."""
     n = o.shape[0]
     _check_rays(o, d, mask, (("max_t", max_t, (n,), torch.float32),))
     if o.device.type == "cpu":
@@ -392,26 +434,39 @@ def trace_any(o, d, max_t, mask, clu, tri, spec: BVHSpec) -> torch.Tensor:
         raise ValueError(f"unsupported device {o.device}")
     from ._build import load_library
 
-    cluf, tri_c = _cuda_args(spec, clu, tri)
+    _check_tables(o.device, tri=tri)
+    hier, sup_c, clu_c, tri_c = _kernel_tables(spec, sup, clu, tri, flat)
     lib = load_library()
     o_c, d_c = o.contiguous(), d.contiguous()
     mt_c, m_c = max_t.contiguous(), mask.contiguous()
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    if n:
+    if n and hier:
+        err = lib.launch_any_hier(
+            _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(sup_c),
+            _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0], clu_c.shape[1],
+            spec.cluster_size, tri_c.shape[1], spec.global_base,
+            spec.padded_global, _ptr(occ), _stream(o.device))
+        _raise_on(err, lib, "any_hier_kernel")
+        trace_any.launches_hier += 1
+    elif n:
         err = lib.launch_any_flat(
-            _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(cluf),
-            _ptr(tri_c), n, cluf.shape[0], spec.cluster_size, tri_c.shape[1],
-            spec.global_base, spec.padded_global, _ptr(occ),
-            ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+            _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(clu_c),
+            _ptr(tri_c), n, clu_c.shape[0] * clu_c.shape[1],
+            spec.cluster_size, tri_c.shape[1], spec.global_base,
+            spec.padded_global, _ptr(occ), _stream(o.device))
         _raise_on(err, lib, "any_flat_kernel")
         trace_any.launches += 1
     return occ
 
 
 trace_any.launches = 0
+trace_any.launches_hier = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero both wrappers' launch counts."""
-    trace_closest.launches = 0
-    trace_any.launches = 0
+    """Zero every kernel wrapper's launch counts (the broad phase's too)."""
+    from .broadphase_cuda import broadphase_keys
+
+    trace_closest.launches = trace_closest.launches_hier = 0
+    trace_any.launches = trace_any.launches_hier = 0
+    broadphase_keys.launches = 0

@@ -31,6 +31,7 @@ import torch
 from . import sampling
 from .lights import sample_lights, select_light
 from .ops import trace_cuda
+from .ops.broadphase_cuda import broadphase_keys, broadphase_ref
 from .ops.intersect import Hit
 from .scene import Scene, SceneData, SceneSpec
 from .types import RenderConfig
@@ -69,12 +70,14 @@ def make_tracers(data: SceneData, spec: SceneSpec, tracer: str):
     ``tracer="cuda"``, their plain versions for ``"torch"``."""
     if tracer == "cuda":
         def closest(o, d, m, seed):
-            return trace_cuda.trace_closest(o, d, m, data.clu_planes,
-                                            data.tri_planes, spec.bvh, seed)
+            return trace_cuda.trace_closest(o, d, m, data.sup_planes,
+                                            data.clu_planes, data.tri_planes,
+                                            spec.bvh, seed)
 
         def any_hit(o, d, mt, m):
-            return trace_cuda.trace_any(o, d, mt, m, data.clu_planes,
-                                        data.tri_planes, spec.bvh)
+            return trace_cuda.trace_any(o, d, mt, m, data.sup_planes,
+                                        data.clu_planes, data.tri_planes,
+                                        spec.bvh)
     else:
         def closest(o, d, m, seed):
             t, tri = trace_cuda.closest_flat_ref(o, d, m, data.tri_planes,
@@ -86,6 +89,19 @@ def make_tracers(data: SceneData, spec: SceneSpec, tracer: str):
             return trace_cuda.any_flat_ref(o, d, mt, m, data.tri_planes,
                                            spec.bvh)
     return closest, any_hit
+
+
+def _fused_global(tracer: str, cfg: RenderConfig, data: SceneData, bvh,
+                  o, d, mask, max_t=None) -> torch.Tensor:
+    """The global set's closest seed key, or with ``max_t`` its 0/1
+    occlusion, from the fused broad phase (``cfg.fused_broadphase``): the
+    kernel for ``tracer="cuda"``, its plain version otherwise."""
+    kw = dict(max_t=max_t, with_clusters=False, any_mode=max_t is not None)
+    if tracer == "cuda":
+        return broadphase_keys(o, d, mask, data.clu_planes, data.tri_planes,
+                               bvh, block=cfg.broadphase_block, **kw)[2]
+    return broadphase_ref(o, d, mask, data.clu_planes, data.tri_planes, bvh,
+                          **kw)[2]
 
 
 def pixel_coords(cfg: RenderConfig, device="cpu"):
@@ -148,6 +164,8 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     sblock = cfg.shadow_ray_block or block
     # rays padded to a common multiple of all block sizes, as the reference
     pad_to = math.lcm(block, pblock, sblock)
+    if cfg.fused_broadphase:
+        pad_to = math.lcm(pad_to, cfg.broadphase_block)
     p = -(-n // pad_to) * pad_to
     pad = p - n
     lcount = spec.light_count
@@ -179,9 +197,13 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     for bounce in range(cfg.max_bounces):
         closest_count += alive.sum()
         # The closest pass is always seeded on the host side: the port's
-        # kernel has no in-kernel global-set test.
-        seed = (trace_cuda.global_seed_keys(o, d, alive, data.tri_planes, bvh)
-                if bvh.num_global else None)
+        # kernels have no in-kernel global-set test.
+        seed = None
+        if bvh.num_global and cfg.fused_broadphase:
+            seed = _fused_global(tracer, cfg, data, bvh, o, d, alive)
+        elif bvh.num_global:
+            seed = trace_cuda.global_seed_keys(o, d, alive, data.tri_planes,
+                                               bvh)
         hit = closest_fn(o, d, alive, seed)
         alive = alive & hit.found  # the megakernel's break on miss (:246-247)
         row = data.shade_table[hit.tri.clamp(min=0).long()]
@@ -221,7 +243,10 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         # Global-set occlusion on the host side of the kernel: rays the
         # scene-spanning planes occlude leave the kernel's mask (they still
         # count as traced shadow rays).
-        if fold_global:
+        if fold_global and cfg.fused_broadphase:
+            g_occ = _fused_global(tracer, cfg, data, bvh, shadow_o,
+                                  ls.direction, do_shadow, sdist) > 0
+        elif fold_global:
             g_occ = trace_cuda.global_any_hit(shadow_o, ls.direction, sdist,
                                               do_shadow, data.tri_planes, bvh)
         else:

@@ -136,17 +136,67 @@ def align_hemisphere_with_normal(sample: torch.Tensor,
             + sample[..., 2:3] * forward)
 
 
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 numpy arrays:
+    counters ``(x1, x2)`` under key ``(k1, k2)``; uint32 arithmetic wraps."""
+    k1, k2 = np.uint32(k1), np.uint32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+            x[1] = x[0] ^ x[1]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def _threefry_block(key, n: int):
+    """``n`` output pairs of ``key`` at counters ``(0, 0) .. (0, n-1)``: the
+    partitionable counter layout (``iota_2x32_shape``) of ``jax.random``."""
+    hi = np.zeros(n, np.uint32)
+    lo = np.arange(n, dtype=np.uint32)
+    return _threefry2x32(key[0], key[1], hi, lo)
+
+
+def jax_randint(seed: int, n: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(jax.random.PRNGKey(seed), (n,), 0, maxval,
+    jnp.int32)`` bit for bit, in numpy, for ``0 < maxval < 2^31``.
+
+    Reproduces the default ``threefry2x32`` implementation with
+    ``jax_threefry_partitionable=True`` (the default since JAX 0.5, and the
+    setting of the JAX package's environment): the key of a 32-bit seed is
+    ``(0, seed)``; ``split`` hashes counters ``(0, 0)`` and ``(0, 1)``;
+    ``random_bits`` XORs the two output words of counters ``(0, i)``; and
+    ``randint`` folds a high and a low draw into ``[0, maxval)`` by its
+    two-draw span arithmetic."""
+    if not 0 < maxval < (1 << 31):
+        raise ValueError(f"maxval {maxval} outside (0, 2^31)")
+    key = (np.uint32(0), np.uint32(seed & 0xFFFFFFFF))
+    s1, s2 = _threefry_block(key, 2)  # split: two new keys
+    higher = np.bitwise_xor(*_threefry_block((s1[0], s2[0]), n))
+    lower = np.bitwise_xor(*_threefry_block((s1[1], s2[1]), n))
+    span = np.uint32(maxval)
+    mult = (1 << 16) % maxval
+    mult = np.uint32(((mult * mult) & 0xFFFFFFFF) % maxval)  # uint32 product
+    offset = (higher % span) * mult + (lower % span)  # wraps as in uint32
+    return (offset % span).astype(np.int32)
+
+
 def pixel_decorrelation_offsets(seed: int, n: int, bits: int = 20,
                                 device="cpu") -> torch.Tensor:
     """Per-pixel random Halton index offsets in ``[0, 2^bits)`` — the
     reference's ``arc4random() % (1 << 20)`` texture
-    (reference: Renderer.swift:249-274) — drawn from a ``torch.Generator``
-    seeded with ``seed``.  These are not the JAX package's bits
-    (``jax.random`` cannot be reproduced in torch; ROADMAP.md, Queue 3)."""
+    (reference: Renderer.swift:249-274) — equal bit for bit to the JAX
+    package's ``jax.random.randint(PRNGKey(seed), (n,), 0, 2^bits)``
+    (:func:`jax_randint`), so a checkpoint moves between the two packages
+    and goes on with the same offsets."""
     if bits > 21:
         raise ValueError(
             f"rand_offset_bits {bits} leaves no sample-index headroom under "
             f"the Halton digit/exactness bound 2^{_MAX_INDEX_BITS}")
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, 1 << bits, (n,), generator=gen,
-                         dtype=torch.int32).to(device)
+    return torch.from_numpy(jax_randint(seed, n, 1 << bits)).to(device)

@@ -2,9 +2,10 @@
 config ladder (plane+sphere, teapot, bunny+HDR, dragon, coatball).
 
 The port's copy of ``metal_raytracing_tpu.scenes.library``: the same seven
-constructors build the same scenes.  The port renders the scenes of up to
-128 padded clusters on the GPU today (dragon needs the hierarchical kernels,
-uv_test textures; ROADMAP.md)."""
+constructors build the same scenes.  The port renders every scene but
+uv_test (textures are not ported; ROADMAP.md) on the GPU: dragon, with 344
+clusters, through the hierarchical kernels, the others through the flat
+ones."""
 
 from __future__ import annotations
 

@@ -200,9 +200,13 @@ class RenderConfig:
     ``"auto"`` follows the renderer's device.  ``host_seed`` folds the
     global set's shadow occlusion into the shadow mask before the any-hit
     pass (the closest pass is always seeded on the host side; either value
-    gives the same image).  The port runs the ``compaction=False``
-    wavefront, which gives the reference's image (the reference's compaction
-    is a pure permutation of the rays)."""
+    gives the same image).  ``fused_broadphase`` computes the global set's
+    closest seed and shadow occlusion in the broad-phase kernel
+    (``ops.broadphase_cuda.broadphase_keys``, on ``broadphase_block``
+    threads per block) instead of the two plain passes; the image is the
+    same.  The port runs the ``compaction=False`` wavefront, which gives the
+    reference's image (the reference's compaction is a pure permutation of
+    the rays)."""
 
     width: int = 512
     height: int = 512
@@ -217,8 +221,13 @@ class RenderConfig:
     primary_ray_block: Optional[int] = 512
     shadow_ray_block: Optional[int] = 512
     host_seed: bool = True
+    fused_broadphase: bool = False
+    broadphase_block: int = 256
 
     def __post_init__(self):
         if self.tracer not in TRACERS:
             raise ValueError(
                 f"tracer must be one of {TRACERS}, got {self.tracer!r}")
+        if self.broadphase_block % 32 or not 0 < self.broadphase_block <= 1024:
+            raise ValueError(f"broadphase_block must be a multiple of 32 in "
+                             f"[32, 1024], got {self.broadphase_block}")

@@ -15,7 +15,8 @@ import time
 
 import torch
 
-__all__ = ["BenchResult", "benchmark_renderer"]
+__all__ = ["BenchResult", "benchmark_renderer", "ProfileResult",
+           "profile_renderer"]
 
 
 @dataclasses.dataclass
@@ -70,3 +71,38 @@ def benchmark_renderer(renderer, samples: int = 4,
         width=renderer.cfg.width, height=renderer.cfg.height,
         samples=renderer.total_samples - samples_before, rays=rays,
         seconds=seconds, warmup_seconds=warmup_s, device=name)
+
+
+@dataclasses.dataclass
+class ProfileResult:
+    samples: int
+    device_ms: float  # kernel time on the card over the window
+    launches: int  # kernels the card ran over the window
+    kernels: list  # (name, device ms, launches), most device time first
+
+    @property
+    def device_ms_per_sample(self) -> float:
+        return self.device_ms / max(self.samples, 1)
+
+
+def profile_renderer(renderer, samples: int = 2) -> ProfileResult:
+    """Device time by kernel over ``samples`` progressive steps on a CUDA
+    device (``torch.profiler``, CUPTI): each kernel's device time and
+    launch count, from the kernel events alone (an operator's row repeats
+    its kernels' time).  The profiler slows the host, so read a device busy
+    share against the wall time of an unprofiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(renderer.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        renderer.step(samples)
+        torch.cuda.synchronize(renderer.device)
+    rows = [(evt.key, evt.device_time_total / 1e3, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return ProfileResult(samples=samples,
+                         device_ms=sum(r[1] for r in rows),
+                         launches=sum(r[2] for r in rows), kernels=rows)

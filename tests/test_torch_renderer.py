@@ -1,10 +1,10 @@
 """The port's renderer end to end against the JAX package's, on the CPU.
 
 Both render the same scene at its default config (the port with its plain
-tracer versions, the JAX package with its CPU tracer); the port takes the
-JAX renderer's pixel offsets, since ``jax.random`` bits cannot be drawn in
-torch.  The gate is the reference's own golden gate
-(``tests/test_golden.py``): RMSE < 1e-3 and max pixel difference < 5e-2.
+tracer versions, the JAX package with its CPU tracer), from the same seed:
+the port draws the JAX package's pixel offsets bit for bit.  The gate is the
+reference's own golden gate (``tests/test_golden.py``): RMSE < 1e-3 and max
+pixel difference < 5e-2.
 """
 
 import os
@@ -21,6 +21,7 @@ from metal_raytracing_tpu.renderer import Renderer as JRenderer
 from metal_raytracing_tpu.scenes import library as jlib
 from metal_raytracing_tpu.types import RenderConfig as JConfig
 from metal_raytracing_tpu_torch import renderer as R
+from metal_raytracing_tpu_torch.cli import build_parser
 from metal_raytracing_tpu_torch.cli import main as cli_main
 from metal_raytracing_tpu_torch.io import procedural as tproc
 from metal_raytracing_tpu_torch.scenes import library as tlib
@@ -53,12 +54,12 @@ def procedural_models():
 
 
 def renderers(scene):
-    """A fresh (JAX, port) renderer pair at the default config; the port
-    takes the JAX pixel offsets."""
+    """A fresh (JAX, port) renderer pair at the default config; both draw
+    the same pixel offsets from the seed."""
     jr = JRenderer(jlib.get_scene(scene, W, H), JConfig(width=W, height=H))
     tr = R.Renderer(tlib.get_scene(scene, W, H),
                     RenderConfig(width=W, height=H), device="cpu")
-    tr.offsets = torch.from_numpy(np.array(jr.offsets))
+    np.testing.assert_array_equal(tr.offsets.numpy(), np.asarray(jr.offsets))
     return jr, tr
 
 
@@ -95,6 +96,8 @@ def test_fingerprint_matches_reference(scene):
 
 
 def test_reference_checkpoint_resumes_in_port(tmp_path):
+    """The port resumes a JAX checkpoint with the JAX offsets, so the next
+    sample continues the JAX image to float rounding (RMSE < 1e-6)."""
     jr, tr = renderers("teapot")
     jr.render(1)
     path = str(tmp_path / "jax_ckpt")
@@ -106,7 +109,7 @@ def test_reference_checkpoint_resumes_in_port(tmp_path):
     jr.render(1)
     tr.render(1)
     assert tr.total_samples == 2
-    assert rmse(jr.image, tr.image) < 1e-3
+    assert rmse(jr.image, tr.image) < 1e-6
 
 
 def test_port_checkpoint_resumes_in_reference(tmp_path):
@@ -151,7 +154,8 @@ def test_cuda_tracer_on_cpu_device_raises():
 
 
 def test_unported_config_knobs_are_errors():
-    for knob in ("compaction", "enable_specular", "rank_trace", "env_map"):
+    for knob in ("compaction", "enable_specular", "rank_trace", "env_map",
+                 "bake_primary", "chunk_skip", "visit_pairs", "telemetry"):
         with pytest.raises(TypeError):
             RenderConfig(**{knob: False})
     with pytest.raises(ValueError, match="tracer"):
@@ -179,6 +183,8 @@ def test_port_imports_no_jax():
             "import metal_raytracing_tpu_torch.renderer\n"
             "import metal_raytracing_tpu_torch.cli\n"
             "import metal_raytracing_tpu_torch.utils.metrics\n"
+            "import metal_raytracing_tpu_torch.ops.broadphase_cuda\n"
+            "import metal_raytracing_tpu_torch.ops._build\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'metal_raytracing_tpu')]\n"
             "assert not bad, bad\n")
@@ -200,3 +206,5 @@ def test_cli_render_resume_and_scenes(tmp_path, capsys):
     assert cli_main(["scenes"]) == 0
     listed = capsys.readouterr().out.split()
     assert "coatball" in listed and len(listed) == 7
+    # the headline scene is the default, as in the JAX package's CLI
+    assert build_parser().parse_args(["render"]).scene == "dragon"

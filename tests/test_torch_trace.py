@@ -13,75 +13,22 @@ import numpy as np
 import pytest
 import torch
 
-from metal_raytracing_tpu.io import procedural as jproc
 from metal_raytracing_tpu.ops import trace_pallas as TP
-from metal_raytracing_tpu.scenes import library as jlib
-from metal_raytracing_tpu_torch import renderer as R
 from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-from metal_raytracing_tpu_torch.scene import scene_data_from_reference
 from metal_raytracing_tpu_torch.types import RenderConfig
+from torch_port_common import (MIN_MATCH, NEAR_TIE_REL, assert_near_ties,
+                               build_both, few_torch_threads,  # noqa: F401
+                               record_passes)
 
 W, H = 64, 48
-# ids (occlusion flags) must agree on this share of live rays; every id
-# mismatch must be a near-tie: both winners' exact t within 2^-13 relative
-# (the packed key chops t to 2^-14 relative, and the two walks visit
-# clusters in different orders).
-MIN_MATCH = 0.999
-NEAR_TIE_REL = 2.0 ** -13
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """The suite runs several test processes at once; two intra-op threads
-    each keep torch from oversubscribing the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(min(2, before))
-    yield
-    torch.set_num_threads(before)
-
-
-def jax_scene_arrays(data) -> dict:
-    out = {}
-    for name, value in data._asdict().items():
-        if value is None:
-            continue
-        if hasattr(value, "_asdict"):
-            for sub, arr in value._asdict().items():
-                out[f"{name}.{sub}"] = np.asarray(arr)
-        else:
-            out[name] = np.asarray(value)
-    return out
 
 
 @pytest.fixture(scope="module")
 def setup():
     """(JAX data, JAX spec, port data, port spec, recorded passes)."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jlib, "resolve_model", lambda n, prefer_file=True:
-               jproc.make_model(n))
-    try:
-        jdata, jspec = jlib.get_scene("coatball", W, H).build(
-            cluster_size=384, builder="sah_free")
-    finally:
-        mp.undo()
-    tdata, tspec = scene_data_from_reference(jax_scene_arrays(jdata), jspec,
-                                             "cpu")
+    jdata, jspec, tdata, tspec = build_both("coatball", W, H)
     assert TC._use_flat(tspec.bvh) and tspec.bvh.num_global > 0
-    cfg = RenderConfig(width=W, height=H)
-    closest, any_hit = R.make_tracers(tdata, tspec, "torch")
-    calls = {"closest": [], "any": []}
-
-    def rec_closest(o, d, m, seed):
-        calls["closest"].append((o.contiguous(), d, m, seed))
-        return closest(o, d, m, seed)
-
-    def rec_any(o, d, mt, m):
-        calls["any"].append((o, d, mt, m))
-        return any_hit(o, d, mt, m)
-
-    offsets = R.make_pixel_offsets(cfg)
-    R.render_sample(tdata, tspec, cfg, offsets, 0,
-                    tracers=(rec_closest, rec_any))
+    calls = record_passes(tdata, tspec, RenderConfig(width=W, height=H))
     return jdata, jspec, tdata, tspec, calls
 
 
@@ -153,15 +100,7 @@ def test_closest_plain_matches_pallas_kernel(setup, bounce):
     live, t, tri, jt, jtri = closest_pair(setup, bounce)
     assert live.sum() > 0.9 * live.size
     same = (tri == jtri) & live
-    bad = live & ~same
-    if bad.any():
-        assert (tri[bad] >= 0).all() and (jtri[bad] >= 0).all()
-        planes = tdata.tri_planes
-        ta, _, _ = TC.recompute_tuv(o[bad], d[bad],
-                                    planes[:, torch.from_numpy(tri[bad])].T)
-        tb, _, _ = TC.recompute_tuv(o[bad], d[bad],
-                                    planes[:, torch.from_numpy(jtri[bad])].T)
-        assert float(((ta - tb).abs() / tb.abs()).max()) <= NEAR_TIE_REL
+    assert_near_ties(o, d, tri, jtri, live, tdata.tri_planes)
     # Chopped t of the same winner: within the chop, plus 1e-4 absolute for
     # bounce rays that start 1e-3 off a surface, where n.v0 - n.o cancels
     # and the two builds' roundings move t by up to ~1e-5.
@@ -202,20 +141,20 @@ def test_wrappers_run_plain_versions_on_cpu(setup):
     _, _, tdata, tspec, calls = setup
     o, d, m, seed = calls["closest"][1]
     before = (TC.trace_closest.launches, TC.trace_any.launches)
-    hit = TC.trace_closest(o, d, m, tdata.clu_planes, tdata.tri_planes,
-                           tspec.bvh, seed)
+    hit = TC.trace_closest(o, d, m, tdata.sup_planes, tdata.clu_planes,
+                           tdata.tri_planes, tspec.bvh, seed)
     t, tri = TC.closest_flat_ref(o, d, m, tdata.tri_planes, tspec.bvh, seed)
     assert torch.equal(hit.tri, tri) and torch.equal(hit.t, t)
     o2, d2, mt2, m2 = calls["any"][1]
-    occ = TC.trace_any(o2, d2, mt2, m2, tdata.clu_planes, tdata.tri_planes,
-                       tspec.bvh)
+    occ = TC.trace_any(o2, d2, mt2, m2, tdata.sup_planes, tdata.clu_planes,
+                       tdata.tri_planes, tspec.bvh)
     assert torch.equal(occ, TC.any_flat_ref(o2, d2, mt2, m2,
                                             tdata.tri_planes, tspec.bvh))
     # the counts grow only where a kernel launches
     assert (TC.trace_closest.launches, TC.trace_any.launches) == before
     with pytest.raises(ValueError, match="seed_key"):
-        TC.trace_closest(o, d, m, tdata.clu_planes, tdata.tri_planes,
-                         tspec.bvh, seed.to(torch.int64))
+        TC.trace_closest(o, d, m, tdata.sup_planes, tdata.clu_planes,
+                         tdata.tri_planes, tspec.bvh, seed.to(torch.int64))
 
 
 def test_flat_switch_and_layout_match_reference(setup):
@@ -230,10 +169,21 @@ def test_flat_switch_and_layout_match_reference(setup):
         TP.IDX_MASK, TP._MISS_KEY, TP._INIT_KEY)
 
 
-def test_hierarchical_scene_refused_by_kernel_path(setup):
-    """A scene past 128 padded clusters needs K3/K4, which are not ported:
-    the CUDA path refuses it before any launch."""
+def test_hierarchical_scene_takes_hierarchical_route(setup):
+    """A scene past 128 padded clusters (dragon: 344 clusters, 43 supers of
+    8) takes the hierarchical kernels K3/K4; ``flat=`` overrides the
+    choice, as in the JAX wrappers."""
     _, _, tdata, tspec, _ = setup
     big = dataclasses.replace(tspec.bvh, num_clusters=344)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        TC._cuda_args(big, tdata.clu_planes, tdata.tri_planes)
+    s_per, ns = TC.super_layout(big)
+    sup = torch.zeros((48, 6))
+    clu = torch.zeros((ns, s_per, 6))
+    tri = torch.zeros((12, ns * s_per * big.cluster_size + 128))
+    hier, sup_c, clu_c, tri_c = TC._kernel_tables(big, sup, clu, tri)
+    assert hier and sup_c.shape == (43, 6) and clu_c.shape == (43, 8, 6)
+    assert not TC._kernel_tables(tspec.bvh, tdata.sup_planes,
+                                 tdata.clu_planes, tdata.tri_planes)[0]
+    assert TC._kernel_tables(tspec.bvh, tdata.sup_planes, tdata.clu_planes,
+                             tdata.tri_planes, flat=False)[0]
+    with pytest.raises(ValueError, match="flat kernels"):
+        TC._kernel_tables(big, sup, clu, tri, flat=True)
