@@ -32,7 +32,24 @@ Phases, each of which raises (exit code != 0) on failure:
    counts of K3/K4/K5; before it, each recorded pass's kernel ms beside its
    bound;
 8. a dragon cross-check at 128x128: the kernels' image against the plain
-   versions'.
+   versions';
+9. K6 (the rank-directed closest walk) against its plain version on every
+   ray of the sorted bounce-1 and bounce-2 passes of one dragon sample at
+   ``compaction=True, rank_trace=2`` (the plain version gathers only each
+   ray's candidate clusters, so no stride), with both times and the bound;
+10. K3 with a per-ray ``seed_base`` against its plain version on the rays
+    K6's certificate leaves open, and K6 + certificate + seeded K3 against
+    K3 alone on the whole passes; K3 and K4 timed on the sorted rays and on
+    the same rays in random order;
+11. the exact broad phase (``nearest_cluster``, plain PyTorch) against K5's
+    two nearest keys on the same rays, and the time of each form of the
+    unfused chain beside K5's;
+12. the dragon main path in four configs inside one call, in turns, two
+    rounds: ``compaction=False``, ``compaction=True``, ``compaction=True,
+    rank_trace=2`` (through ``Renderer.render``), ``compaction=True,
+    fused_broadphase=True``; launch counts per sample, each image against
+    the first config's, and a profile of the third;
+13. a dragon cross-check at 128x128 with ``compaction=True, rank_trace=2``.
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
 tables once) over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, the
@@ -42,7 +59,8 @@ pass (coatball, K5, and dragon's primary passes, where the plain versions
 are timed) and from the kernels' results where they did not (dragon's
 bounce passes, which the plain versions matched on every 16th ray):
 for a closest ray, every cluster whose slab entry lies below its final hit
-t, dense-tested at 39 operations per triangle slot (``tri_hit`` in
+t (for K6: each candidate cluster that survives the cull of its walk),
+dense-tested at 39 operations per triangle slot (``tri_hit`` in
 ``csrc/trace_common.cuh``), plus 27 operations per slab test (the boxes a
 walk must test to find those clusters); for an unoccluded shadow ray every
 cluster its segment overlaps, for an occluded one a single triangle.
@@ -72,6 +90,12 @@ CHECK_STRIDE = 16
 MIN_MATCH = 0.999
 NEAR_TIE_REL = 2.0 ** -13
 IMAGE_RMSE = 1e-3
+# Compaction permutes the rays and takes exact shortcuts: its image equals
+# the compaction=False image up to the order of float32 sums (none here).
+SAME_IMAGE_RMSE = 1e-6
+SLICE = dict(compaction=True, rank_trace=2)
+ROUNDS = 2
+ROUND_SAMPLES = 3
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and FP32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -205,17 +229,27 @@ def record_passes(renderer):
     closest, any_hit = R.make_tracers(renderer.data, renderer.spec, "cuda")
     calls = {"closest": [], "any": []}
 
-    def rec_closest(o, d, m, seed):
+    rank = R.make_closest_rank(renderer.data, renderer.spec, renderer.cfg,
+                               "cuda", closest)
+    calls["rank"] = []
+
+    def rec_closest(o, d, m, seed, seed_base=None):
         calls["closest"].append((o.contiguous(), d.clone(), m.clone(),
                                  None if seed is None else seed.clone()))
-        return closest(o, d, m, seed)
+        return closest(o, d, m, seed, seed_base)
+
+    def rec_rank(o, d, m, rank_keys, seed):
+        calls["rank"].append((o.contiguous(), d.contiguous(), m.clone(),
+                              tuple(rank_keys), seed))
+        return rank(o, d, m, rank_keys, seed)
 
     def rec_any(o, d, mt, m):
         calls["any"].append((o.clone(), d.clone(), mt.clone(), m.clone()))
         return any_hit(o, d, mt, m)
 
     R.render_sample(renderer.data, renderer.spec, renderer.cfg,
-                    renderer.offsets, 0, tracers=(rec_closest, rec_any))
+                    renderer.offsets, 0,
+                    tracers=(rec_closest, rec_any, rank and rec_rank))
     torch.cuda.synchronize()
     return calls
 
@@ -419,6 +453,255 @@ def check_broadphase(calls, data, spec):
     return out
 
 
+def _tri_of(key, base):
+    """Triangle slot of a rank walk's (key, base); -1 on a miss."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    return torch.where(key < TC._MISS_KEY, base + (key & TC.IDX_MASK), -1)
+
+
+def check_rank(name, rec, data, spec):
+    """K6 against its plain version on every ray of one recorded sorted
+    pass.  Returns a result dict with the walk's (key, base)."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import rank_cuda as RK
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.ops.broadphase_cuda import (NC_IDM,
+                                                                NC_SENT)
+
+    o, d, m, keys, seed = rec
+    tri, bvh = data.tri_planes, spec.bvh
+    walk = lambda ks: RK.trace_closest_rank(o, d, m, list(ks), tri, bvh, seed)
+    key, base = walk(keys[:2])
+    plain_ms, (rkey, rbase) = cuda_call(lambda: RK.closest_rank_ref(
+        o, d, m, list(keys[:2]), tri, bvh, seed))
+    n_live = int(m.sum())
+    equal = int(((key == rkey) & (base == rbase) & m).sum()) / max(n_live, 1)
+    dead_same = bool(((key == rkey) & (base == rbase))[~m].all())
+    match, n_bad, worst = near_ties(o, d, m, _tri_of(key, base),
+                                    _tri_of(rkey, rbase), tri)
+    both = m & (key == rkey) & (key < TC._MISS_KEY)
+    err = float((TC._key_to_t(key) - TC._key_to_t(rkey))[both].abs().max()
+                ) if bool(both.any()) else 0.0
+    ms = cuda_ms(lambda: walk(keys[:2]), 10)
+    # the clusters this walk dense-tests: rank 1 where its entry lies below
+    # the seed's t, rank 2 where it lies below the best after rank 1
+    entry = lambda pk: (pk & ~NC_IDM).view(torch.float32)
+    seed_t = TC._key_to_t(seed) if seed is not None else TC.BIG_T
+    v1 = m & (keys[0] != NC_SENT) & (entry(keys[0]) < seed_t)
+    key1, _ = walk(keys[:1])
+    v2 = m & (keys[1] != NC_SENT) & (entry(keys[1]) < TC._key_to_t(key1))
+    visits = int(v1.sum()) + int(v2.sum())
+    n = o.shape[0]
+    nbytes = (n * (12 + 12 + 1 + 4 + 8) + n * 8
+              + 48 * bvh.num_clusters * bvh.cluster_size)
+    bnd = bound(nbytes, visits * bvh.cluster_size * PLANE_OPS)
+    unresolved = m & ~RK.rank_certificate(key, keys[2])
+    n_open = int(unresolved.sum())
+    log(f"  {name}: {n_live} live rays of {n}, key and base equal "
+        f"{equal:.6f} (ids {match:.6f}, {n_bad} near-ties, worst exact-t rel "
+        f"{worst:.3e}), max |t - t_plain| {err:.3e}; {visits} cluster visits "
+        f"({int(v2.sum())} at rank 2); kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); uncertified "
+        f"{n_open} ({n_open / max(n_live, 1):.4f} of live)")
+    assert equal >= MIN_MATCH and match >= MIN_MATCH, f"{name}: {equal:.6f}"
+    assert worst <= NEAR_TIE_REL, f"{name}: mismatch is not a near-tie"
+    assert dead_same, f"{name}: masked rays differ"
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
+            "key": key, "base": base, "unresolved": unresolved}
+
+
+def check_fallback(name, rec, walk, data, spec):
+    """K3 seeded per ray with K6's key and base, against its plain version
+    on the uncertified rays; then K6 + certificate + seeded K3 against K3
+    alone on the whole pass.  Returns the seeded K3's max |t - t_plain|."""
+    import torch
+
+    from metal_raytracing_tpu_torch import renderer as R
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    o, d, m, keys, seed = rec
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+    open_ = walk["unresolved"].nonzero()[:, 0]
+    uo, ud = o[open_].contiguous(), d[open_].contiguous()
+    um = walk["unresolved"][open_]
+    ukey, ubase = walk["key"][open_], walk["base"][open_]
+    got = TC.trace_closest(uo, ud, um, *tabs, ukey, seed_base=ubase)
+    plain_ms, (t_ref, tri_ref) = cuda_call(lambda: TC.closest_flat_ref(
+        uo, ud, um, data.tri_planes, spec.bvh, ukey, ubase))
+    match, n_bad, worst = near_ties(uo, ud, um, got.tri, tri_ref,
+                                    data.tri_planes)
+    both = um & (got.tri == tri_ref) & (tri_ref >= 0)
+    err = float((got.t - t_ref)[both].abs().max()) if bool(both.any()) else 0.0
+    ms = cuda_ms(lambda: TC.trace_closest(o, d, walk["unresolved"], *tabs,
+                                          walk["key"],
+                                          seed_base=walk["base"]), 10)
+    # the reference packs the stragglers to the front before its fallback:
+    # what that would buy here (the sort and gathers not counted)
+    order = torch.argsort(walk["unresolved"].to(torch.uint8), descending=True,
+                          stable=True)
+    po, pd, pm, pkey, pbase = (x[order].contiguous() for x in (
+        o, d, walk["unresolved"], walk["key"], walk["base"]))
+    ms_packed = cuda_ms(lambda: TC.trace_closest(po, pd, pm, *tabs, pkey,
+                                                 seed_base=pbase), 10)
+    log(f"  {name} seeded K3 on {open_.shape[0]} uncertified rays: ids equal "
+        f"{match:.6f}, {n_bad} near-ties (worst {worst:.3e}), max |t - "
+        f"t_plain| {err:.3e}; kernel {ms:.3f} ms (in place, whole pass "
+        f"masked; {ms_packed:.3f} ms with those rays packed to the front), "
+        f"plain {plain_ms:.3f} ms")
+    assert match >= MIN_MATCH and worst <= NEAR_TIE_REL, name
+    closest = R.make_tracers(data, spec, "cuda")[0]
+    rank = R.make_closest_rank(data, spec, R.RenderConfig(**SLICE), "cuda",
+                               closest)
+    hit, _ = rank(o, d, m, keys, seed)
+    alone = TC.trace_closest(o, d, m, *tabs, seed)
+    match, n_bad, worst = near_ties(o, d, m, hit.tri, alone.tri,
+                                    data.tri_planes)
+    ms_rank = cuda_ms(lambda: rank(o, d, m, keys, seed), 10)
+    ms_alone = cuda_ms(lambda: TC.trace_closest(o, d, m, *tabs, seed), 10)
+    log(f"  {name} K6 + certificate + seeded K3 vs K3 alone: ids equal "
+        f"{match:.6f}, {n_bad} near-ties (worst {worst:.3e}); {ms_rank:.3f} "
+        f"ms against {ms_alone:.3f} ms")
+    assert match >= MIN_MATCH and worst <= NEAR_TIE_REL, name
+    return err
+
+
+def sorted_against_shuffled(name, fn, args):
+    """Kernel ms on a recorded sorted pass and on the same rays in a random
+    order (what the sort is worth to a one-thread-per-ray kernel)."""
+    import torch
+
+    n = args[0].shape[0]
+    perm = torch.randperm(n, device=args[0].device,
+                          generator=torch.Generator(args[0].device)
+                          .manual_seed(0))
+    mixed = tuple(a[perm].contiguous() for a in args)
+    ms_sorted = cuda_ms(lambda: fn(*args), 10)
+    ms_mixed = cuda_ms(lambda: fn(*mixed), 10)
+    log(f"    {name}: {ms_sorted:.3f} ms sorted, {ms_mixed:.3f} ms in random "
+        f"order ({int(args[-1].sum())} live of {n})")
+    return ms_sorted, ms_mixed
+
+
+def check_exact_broadphase(rec, any_rec, data, spec):
+    """``nearest_cluster``'s rank 1-2 keys (plain PyTorch on the card)
+    against K5's on the same rays, and the ms of the unfused forms."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
+
+    o, d, m, _, _ = rec
+    clu, tri, bvh = data.clu_planes, data.tri_planes, spec.bvh
+    rank3 = lambda: BP.nearest_cluster(o, d, m, clu, bvh, return_key=True,
+                                       return_second=2, return_packed=True)
+    fused = lambda: BP.broadphase_keys(o, d, m, clu, tri, bvh, want2=True)
+    _, k1, k2, _ = rank3()
+    f1, f2, _ = fused()
+    n_live = int(m.sum())
+    share = min(int(((a == b) & m).sum()) / max(n_live, 1)
+                for a, b in ((k1, f1), (k2, f2)))
+    ms_rank3 = cuda_ms(rank3, 3)
+    ms_rank2 = cuda_ms(lambda: BP.nearest_cluster(
+        o, d, m, clu, bvh, return_key=True, return_second=1), 3)
+    ms_fused = cuda_ms(fused, 10)
+    so, sd, smt, sm = any_rec
+    ms_pair = cuda_ms(lambda: BP.nearest_cluster_pair(
+        so, sd, smt, sm, d, m, clu, bvh, ranks=3, return_packed=True), 3)
+    ms_sup = cuda_ms(lambda: BP.nearest_cluster(
+        so, sd, sm, data.sup_planes[:, None, :], bvh, max_t=smt), 3)
+    torch.cuda.synchronize()
+    log(f"  nearest_cluster vs K5 on {n_live} live rays: rank 1 and 2 keys "
+        f"equal {share:.6f}; per pass: ranks 1-3 {ms_rank3:.3f} ms, ranks "
+        f"1-2 {ms_rank2:.3f} ms, pair sweep (shadow + ranks 1-3) "
+        f"{ms_pair:.3f} ms, super level {ms_sup:.3f} ms; K5 with the second "
+        f"key {ms_fused:.3f} ms")
+    assert share >= MIN_MATCH, f"nearest_cluster vs K5: {share:.6f}"
+
+
+CONFIGS = (  # (label, config keywords)
+    ("compaction=False", {}),
+    ("compaction=True", dict(compaction=True)),
+    ("compaction=True rank_trace=2", SLICE),
+    ("compaction=True fused_broadphase=True",
+     dict(compaction=True, fused_broadphase=True)),
+)
+
+
+def four_configs(card, size):
+    """The dragon main path in four configs in turns (A B C D, twice), with
+    launch counts per timed run.  Returns the slice's counts and samples."""
+    import torch
+
+    from metal_raytracing_tpu_torch.io.image import rmse
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
+
+    w, h = size
+    scene = get_scene("dragon", w, h)
+    rs = [Renderer(scene, RenderConfig(width=w, height=h, **kw),
+                   device="cuda") for _, kw in CONFIGS]
+    for r in rs:  # warm-up: one sample each
+        r.render(1)
+    torch.cuda.synchronize()
+    rows = {label: [] for label, _ in CONFIGS}
+    slice_counts, slice_samples = None, 0
+    for _ in range(ROUNDS):
+        for (label, kw), r in zip(CONFIGS, rs):
+            rays0 = r.total_closest_rays + r.total_shadow_rays
+            TC.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(ROUND_SAMPLES)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = launch_counts()
+            rays = r.total_closest_rays + r.total_shadow_rays - rays0
+            rows[label].append((sec / ROUND_SAMPLES * 1e3, rays / sec / 1e6,
+                                counts))
+            if kw is SLICE:
+                slice_samples += ROUND_SAMPLES
+                slice_counts = {k: v + (slice_counts or {}).get(k, 0)
+                                for k, v in counts.items()}
+    ref = rs[0].image
+    for (label, _), r in zip(CONFIGS, rs):
+        img = r.image
+        assert img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+        assert float(img.min()) >= 0.0 and float(img.max()) > 0.01
+        err = rmse(img, ref)
+        per = {k: v / ROUND_SAMPLES for k, v in rows[label][-1][2].items()
+               if v}
+        log(f"  {label}: " + " / ".join(f"{ms:.3f}" for ms, _, _ in
+                                        rows[label])
+            + " ms/sample, " + " / ".join(f"{mr:.3f}" for _, mr, _ in
+                                          rows[label])
+            + f" Mrays/s; launches/sample {per}; RMSE vs compaction=False "
+            f"after {r.total_samples} samples {err:.3e} (gate < "
+            f"{SAME_IMAGE_RMSE}); on {card}")
+        assert err < SAME_IMAGE_RMSE, (label, err)
+    per = {k: v / slice_samples for k, v in slice_counts.items()}
+    assert per["closest_rank"] == 2 and per["closest_hier"] == 3, per
+    assert per["any_hier"] == 3 and per["closest_flat"] == 0, per
+    fused = rows[CONFIGS[3][0]][-1][2]
+    assert fused["broadphase"] == 6 * ROUND_SAMPLES, fused
+    sl = rs[2]
+    wall_ms = rows[CONFIGS[2][0]][-1][0]
+    prof = profile_renderer(sl, 2)
+    busy = prof.device_ms_per_sample / wall_ms
+    log(f"  slice profiled 2 samples: device {prof.device_ms_per_sample:.3f} "
+        f"ms/sample in {prof.launches // prof.samples} kernels/sample; busy "
+        f"{busy:.3f} of the unprofiled wall (idle {1 - busy:.3f})")
+    for name, ms, n in prof.kernels[:8]:
+        log(f"    {ms / prof.device_ms:.3f} {ms / prof.samples:.3f} "
+            f"ms/sample {n // prof.samples}/sample {name[:90]}")
+    return slice_counts, slice_samples
+
+
 def main_path(renderer, card, label, size):
     """Time the renderer's main path and check its image; returns (bench,
     samples).  The launch counts cover the timed run only; a profiled
@@ -458,12 +741,14 @@ def launch_counts():
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
     from metal_raytracing_tpu_torch.ops.broadphase_cuda import \
         broadphase_keys
+    from metal_raytracing_tpu_torch.ops.rank_cuda import trace_closest_rank
 
     return {"closest_flat": TC.trace_closest.launches,
             "any_flat": TC.trace_any.launches,
             "closest_hier": TC.trace_closest.launches_hier,
             "any_hier": TC.trace_any.launches_hier,
-            "broadphase": broadphase_keys.launches}
+            "broadphase": broadphase_keys.launches,
+            "closest_rank": trace_closest_rank.launches}
 
 
 def cross_check(scene, size, spp, **cfg_kw):
@@ -494,6 +779,7 @@ def main() -> int:
         return 1
 
     from metal_raytracing_tpu_torch.ops import _build
+    from metal_raytracing_tpu_torch.ops import rank_cuda as RK
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
     from metal_raytracing_tpu_torch.renderer import Renderer
     from metal_raytracing_tpu_torch.scenes import get_scene
@@ -619,6 +905,60 @@ def main() -> int:
     log("phase 8: dragon cross-check")
     cross_check("dragon", (128, 128), 1)
 
+    # ---- phase 9: K6 against its plain version on the sorted bounce passes
+    sl = Renderer(get_scene("dragon", w, h),
+                  RenderConfig(width=w, height=h, **SLICE), device="cuda")
+    calls = record_passes(sl)
+    assert len(calls["rank"]) == 2 and len(calls["any"]) == 3
+    log("phase 9: K6 vs plain version (all rays)")
+    walks = []
+    for b, rec in enumerate(calls["rank"], start=1):
+        walks.append(check_rank(f"K6 bounce {b}", rec, sl.data, sl.spec))
+        res.setdefault("K6", []).append(walks[-1])
+
+    # ---- phase 10: the seeded K3, the composition, and what the sort buys
+    log("phase 10: K3 with seed_base, and K6 + certificate + K3 vs K3 alone")
+    for b, (rec, walk) in enumerate(zip(calls["rank"], walks), start=1):
+        res["K3"].append({"err": check_fallback(f"bounce {b}", rec, walk,
+                                                sl.data, sl.spec)})
+    log("  K3 / K4 on the slice's sorted passes:")
+    tabs = (sl.data.sup_planes, sl.data.clu_planes, sl.data.tri_planes,
+            sl.spec.bvh)
+    for b, (o, d, m, _, seed) in enumerate(calls["rank"], start=1):
+        sorted_against_shuffled(
+            f"K3 bounce {b}", lambda o, d, seed, m: TC.trace_closest(
+                o, d, m, *tabs, seed), (o, d, seed, m))
+        sorted_against_shuffled(
+            f"K6 bounce {b}", lambda o, d, seed, k1, k2, m:
+            RK.trace_closest_rank(o, d, m, [k1, k2], tabs[2], tabs[3], seed),
+            (o, d, seed, calls["rank"][b - 1][3][0],
+             calls["rank"][b - 1][3][1], m))
+    for b in (1, 2):
+        o2, d2, mt, m2 = calls["any"][b]
+        sorted_against_shuffled(
+            f"K4 bounce {b}", lambda o, d, mt, m: TC.trace_any(
+                o, d, mt, m, *tabs), (o2.contiguous(), d2.contiguous(), mt,
+                                      m2))
+
+    # ---- phase 11: the exact broad phase beside K5
+    log("phase 11: nearest_cluster (plain PyTorch) vs K5")
+    check_exact_broadphase(calls["rank"][0], calls["any"][1], sl.data,
+                           sl.spec)
+    del calls, walks, sl
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: four configs in turns
+    log(f"phase 12: dragon main path, four configs in turns, {ROUNDS} rounds "
+        f"of {ROUND_SAMPLES} samples")
+    slice_counts, slice_samples = four_configs(card, DRAGON)
+    log(f"  slice launches over {slice_samples} samples: {slice_counts}")
+    launches["K6"] = slice_counts["closest_rank"]
+    assert launches["K6"] >= 2 * slice_samples
+
+    # ---- phase 13: the slice's image through the kernels vs plain versions
+    log("phase 13: dragon cross-check, compaction=True rank_trace=2")
+    cross_check("dragon", (128, 128), 1, **SLICE)
+
     kernels = []
     for key, name, src, line, first in (
             ("K1", "closest_flat_kernel", "trace_flat.cu", 1848, res["K1"][0]),
@@ -627,7 +967,9 @@ def main() -> int:
              res["K3"][0]),
             ("K4", "any_hier_kernel", "trace_hier.cu", 1653, res["K4"][0]),
             ("K5", "broadphase_kernel", "broadphase.cu", 960,
-             bp["closest global"])):
+             bp["closest global"]),
+            ("K6", "closest_rank_kernel", "trace_rank.cu", 1424,
+             res["K6"][0])):
         errs = ([r["err"] for r in res[key]] if key in res
                 else [r["err"] for r in bp.values()])
         kernels.append({

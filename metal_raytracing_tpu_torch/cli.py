@@ -51,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from --checkpoint if it exists")
     r.add_argument("--save-every", type=int, default=0,
                    help="write the image (and checkpoint) every N samples")
+    r.add_argument("--compaction", action="store_true",
+                   help="sort the rays between bounces (same image)")
+    r.add_argument("--rank-trace", type=int, default=0, choices=(0, 2),
+                   help="with --compaction: rank-directed closest walk over "
+                        "this many candidate clusters a ray (0 = off)")
 
     sub.add_parser("scenes", help="list available scenes")
     return p
@@ -59,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
 def cmd_render(args) -> int:
     width, height = args.size
     scene = get_scene(args.scene, width, height)
-    cfg = RenderConfig(width=width, height=height, spp=args.spp)
+    cfg = RenderConfig(width=width, height=height, spp=args.spp,
+                       compaction=args.compaction, rank_trace=args.rank_trace)
     t0 = time.perf_counter()
     renderer = Renderer(scene, cfg, device=args.device)
     print(f"scene {scene.name}: {scene.triangle_count} triangles, "

@@ -1,5 +1,5 @@
 // Device helpers shared by the traversal kernels (trace_flat.cu,
-// trace_hier.cu) and the broad-phase kernel (broadphase.cu).
+// trace_hier.cu, trace_rank.cu) and the broad-phase kernel (broadphase.cu).
 //
 // Numerics match the plain PyTorch versions op for op (every source is
 // built with -fmad=false and IEEE division): the slab test of

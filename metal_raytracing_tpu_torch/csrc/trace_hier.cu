@@ -42,14 +42,16 @@ constexpr int kMaxSupers = 128;
 constexpr int kMaxPerSuper = 32;
 
 // Closest hit (replaces _closest_kernel, trace_pallas.py:1139).  Starts
-// from the host seed key (the global set's best hit) with base g_base, as
-// the TPU kernel's host-seed path; a cluster's key replaces the best only
-// when strictly smaller.  Writes the best key's chopped t and its slot
-// (-1 on a miss).
+// from the host seed key (the global set's best hit) with base g_base, or
+// with the ray's own seed_base (the TPU kernel's host_seed_base: the rank
+// walk's best key and its cluster base), as the TPU kernel's host-seed path;
+// a cluster's key replaces the best only when strictly smaller.  Writes the
+// best key's chopped t and its slot (-1 on a miss).
 __global__ void __launch_bounds__(kThreads)
 closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const unsigned char* __restrict__ mask,
                     const int* __restrict__ seed,
+                    const int* __restrict__ seed_base,
                     const float* __restrict__ sup,
                     const float* __restrict__ clu,
                     const float* __restrict__ tri, int n, int n_sup,
@@ -64,7 +66,7 @@ closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (r >= n) return;
 
   int key = seed ? seed[r] : init_key();
-  int base = g_base;
+  int base = seed_base ? seed_base[r] : g_base;
   if (mask[r]) {
     Ray ray = load_ray(o, d, r);
     unsigned svis[4] = {0u, 0u, 0u, 0u};
@@ -147,15 +149,17 @@ bool bad_layout(int n_sup, int s_per) {
 extern "C" {
 
 // Plain C entry points for ctypes.  `sup` holds the n_sup real super boxes
-// (n_sup, 6) and `clu` their clusters (n_sup, s_per, 6).  Each launches on
+// (n_sup, 6) and `clu` their clusters (n_sup, s_per, 6); `seed` and
+// `seed_base` may be null (no seed; base g_base).  Each launches on
 // the given stream, allocates nothing, and returns the launch's
 // cudaGetLastError().
 
 int launch_closest_hier(const void* o, const void* d, const void* mask,
-                        const void* seed, const void* sup, const void* clu,
-                        const void* tri, int n, int n_sup, int s_per,
-                        int c_size, int T, int g_base, void* t_out,
-                        void* tri_out, void* stream) {
+                        const void* seed, const void* seed_base,
+                        const void* sup, const void* clu, const void* tri,
+                        int n, int n_sup, int s_per, int c_size, int T,
+                        int g_base, void* t_out, void* tri_out,
+                        void* stream) {
   if (bad_layout(n_sup, s_per)) return (int)cudaErrorInvalidValue;
   size_t smem = shared_bytes(n_sup, s_per);
   cudaError_t err = allow_shared(closest_hier_kernel, smem);
@@ -163,9 +167,9 @@ int launch_closest_hier(const void* o, const void* d, const void* mask,
   int blocks = (n + kThreads - 1) / kThreads;
   closest_hier_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)o, (const float*)d, (const unsigned char*)mask,
-      (const int*)seed, (const float*)sup, (const float*)clu,
-      (const float*)tri, n, n_sup, s_per, c_size, T, g_base, (float*)t_out,
-      (int*)tri_out);
+      (const int*)seed, (const int*)seed_base, (const float*)sup,
+      (const float*)clu, (const float*)tri, n, n_sup, s_per, c_size, T,
+      g_base, (float*)t_out, (int*)tri_out);
   return (int)cudaGetLastError();
 }
 

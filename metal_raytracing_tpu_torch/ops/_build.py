@@ -117,12 +117,14 @@ def load_library() -> ctypes.CDLL:
         lib.launch_any_flat.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                         p, p]
         lib.launch_any_flat.restype = i
-        lib.launch_closest_hier.argtypes = [p] * 7 + [i] * 6 + [p] * 3
+        lib.launch_closest_hier.argtypes = [p] * 8 + [i] * 6 + [p] * 3
         lib.launch_closest_hier.restype = i
         lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 2
         lib.launch_any_hier.restype = i
         lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]
         lib.launch_broadphase.restype = i
+        lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 3
+        lib.launch_closest_rank.restype = i
         lib.kernels_error_string.argtypes = [i]
         lib.kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -14,7 +14,18 @@ and the global set's closest-hit seed key (the :func:`global_seed_keys`
 layout, t from the Newton-refined reciprocal of the plane test) or, in
 ``any_mode``, its 0/1 occlusion flag.  The renderer's
 ``fused_broadphase=True`` takes the global results in place of
-``global_seed_keys`` and ``global_any_hit``.
+``global_seed_keys`` and ``global_any_hit``, and under ``compaction`` the
+cluster keys for its sort keys.
+
+:func:`nearest_cluster` and :func:`nearest_cluster_pair` are the exact
+broad phase of the compaction sort keys, the counterparts of the functions
+of those names in ``trace_pallas``.  The reference leaves them to XLA,
+outside any Pallas kernel, so they are plain PyTorch here on every device:
+an (rays x clusters) slab chain of sub, mul, min and max whose int32 keys
+equal the reference's bit for bit.  Eager PyTorch does not fuse that chain
+(about forty passes over rays x clusters x 4 byte temporaries), which is
+what makes the compaction path slow on the card; fusing it is ROADMAP.md's
+item.
 """
 
 from __future__ import annotations
@@ -29,12 +40,17 @@ from .trace_cuda import (IDX_MASK, N_TRI_PLANES, _INIT_KEY, _check_rays,
                          _ray_chunks, _stream)
 
 __all__ = ["broadphase_keys", "broadphase_ref", "decode_cluster_key",
-           "slab_entry", "NC_SENT", "BROADPHASE_MAX_CLUSTERS"]
+           "slab_entry", "nearest_cluster", "nearest_cluster_pair", "NC_SENT",
+           "NC_IDM", "BROADPHASE_MAX_CLUSTERS"]
 
 # Packed broad-phase keys keep 12 cluster-id bits (trace_pallas._NC_IDM).
 NC_IDM = (1 << 12) - 1
 NC_SENT = int((np.float32(BIG_T).view(np.int32).item() & ~NC_IDM) | NC_IDM)
 BROADPHASE_MAX_CLUSTERS = 4096
+# Bytes of one (rays x clusters) float32 temporary of the exact broad phase:
+# a full-frame pass runs in a few ray chunks of this size (1M rays x 344
+# clusters: 6), each a fixed number of launches.
+_SWEEP_CHUNK_BYTES = 1 << 28
 
 
 def _safe_inv(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -170,3 +186,124 @@ def decode_cluster_key(key: torch.Tensor, ncp: int) -> torch.Tensor:
     means no overlap (``trace_pallas.decode_cluster_key``)."""
     return torch.where(key == NC_SENT, torch.full_like(key, ncp),
                        key & NC_IDM)
+
+
+# ---------------------------------------------------------------------------
+# The exact broad phase of the compaction sort keys (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_chunks(n: int, nc: int):
+    step = max(1, _SWEEP_CHUNK_BYTES // (4 * max(nc, 1)))
+    for s in range(0, max(n, 1), step):
+        yield s, min(n, s + step)
+
+
+def _box_subs(o, boxes):
+    """Per axis the two (n, NC) differences ``box lo - o`` and ``box hi - o``
+    (per-axis 2-D chains, as the reference, never an (n, NC, 3) tensor)."""
+    return [(boxes[None, :, a] - o[:, a:a + 1],
+             boxes[None, :, a + 3] - o[:, a:a + 1]) for a in range(3)]
+
+
+def _packed_slab_keys(subs, d, mask, max_t, boxes, ids):
+    """(n, NC) packed ``(bits(max(t_entry, 0)) & ~0xFFF) | cluster id`` keys
+    of one ray set against every box, NC_SENT where the slab test fails, in
+    ``trace_pallas.nearest_cluster``'s op order."""
+    inv = _safe_inv(d)
+    tn = tf = None
+    for a in range(3):
+        t0 = subs[a][0] * inv[:, a:a + 1]
+        t1 = subs[a][1] * inv[:, a:a + 1]
+        lo_a, hi_a = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = lo_a if tn is None else torch.maximum(tn, lo_a)
+        tf = hi_a if tf is None else torch.minimum(tf, hi_a)
+    hit = ((tn <= tf) & (tf >= 0.0) & (boxes[:, 3] >= boxes[:, 0])[None, :]
+           & mask[:, None])
+    if max_t is not None:
+        hit &= tn <= max_t[:, None]
+    ti = torch.clamp(tn, min=0.0).view(torch.int32)
+    return torch.where(hit, (ti & ~NC_IDM) | ids, NC_SENT)
+
+
+def _smallest_keys(key, ranks: int):
+    """The ``ranks`` smallest keys of each row, ascending.  Real keys are
+    distinct (unique id bits), so each further rank is the minimum of what
+    lies above the last; a row that runs out gives NC_SENT."""
+    out = [key.amin(dim=1)]
+    for _ in range(ranks - 1):
+        key = torch.where(key == out[-1][:, None], NC_SENT, key)
+        out.append(key.amin(dim=1))
+    return out
+
+
+def nearest_cluster(o, d, mask, clu, spec: BVHSpec, max_t=None,
+                    return_key: bool = False, return_second: int = 0,
+                    return_packed: bool = False):
+    """Per-ray id of the nearest slab-hit cluster, (N,) int32 in [0, NC]
+    where NC (the padded cluster count) means no overlap;
+    ``trace_pallas.nearest_cluster``, with its return forms.
+
+    ``clu`` is the (NS, S, 6) box table (the shadow fold of the last bounce
+    passes the super boxes as ``sup[:, None, :]``).  With ``max_t`` only
+    clusters entered before it count.  ``return_key`` adds the winner's
+    packed key after the id; ``return_second`` (1 or 2) adds the second (and
+    third) nearest, as ids or with ``return_packed`` as packed keys."""
+    del spec  # the reference's signature; the box table says it all
+    ns, s_per, _ = clu.shape
+    nc = ns * s_per
+    n = o.shape[0]
+    dev = o.device
+    boxes = clu.reshape(nc, 6)
+    ids = torch.arange(nc, dtype=torch.int32, device=dev)[None, :]
+    ranks = 1 + int(return_second)
+    keys = [torch.empty((n,), dtype=torch.int32, device=dev)
+            for _ in range(ranks)]
+    for s, e in _sweep_chunks(n, nc):
+        key = _packed_slab_keys(_box_subs(o[s:e], boxes), d[s:e], mask[s:e],
+                                None if max_t is None else max_t[s:e], boxes,
+                                ids)
+        for out, k in zip(keys, _smallest_keys(key, ranks)):
+            out[s:e] = k
+    cid = decode_cluster_key(keys[0], nc)
+    extras = [k if return_packed else decode_cluster_key(k, nc)
+              for k in keys[1:]]
+    if return_key:
+        return (cid, keys[0], *extras)
+    return (cid, *extras) if extras else cid
+
+
+def nearest_cluster_pair(o, d_sh, max_t_sh, mask_sh, d_nb, mask_nb, clu,
+                         spec: BVHSpec, ranks: int = 2,
+                         return_packed: bool = False):
+    """The shadow segments' nearest cluster and the next bounce rays'
+    ``ranks`` nearest clusters in one sweep over their shared origins
+    (``trace_pallas.nearest_cluster_pair``): the ``box - o`` differences are
+    computed once for both chains.  Returns ``(scid, cid, nckey, cid2[,
+    cid3])``, equal to ``nearest_cluster(o, d_sh, mask_sh, clu, spec,
+    max_t=max_t_sh)`` followed by ``nearest_cluster(o, d_nb, mask_nb, clu,
+    spec, return_key=True, return_second=ranks - 1,
+    return_packed=return_packed)``."""
+    del spec
+    if ranks not in (2, 3):
+        raise ValueError(f"ranks must be 2 or 3, got {ranks}")
+    ns, s_per, _ = clu.shape
+    nc = ns * s_per
+    n = o.shape[0]
+    dev = o.device
+    boxes = clu.reshape(nc, 6)
+    ids = torch.arange(nc, dtype=torch.int32, device=dev)[None, :]
+    skey1 = torch.empty((n,), dtype=torch.int32, device=dev)
+    bkeys = [torch.empty_like(skey1) for _ in range(ranks)]
+    for s, e in _sweep_chunks(n, nc):
+        subs = _box_subs(o[s:e], boxes)
+        skey1[s:e] = _packed_slab_keys(subs, d_sh[s:e], mask_sh[s:e],
+                                       max_t_sh[s:e], boxes, ids).amin(dim=1)
+        bkey = _packed_slab_keys(subs, d_nb[s:e], mask_nb[s:e], None, boxes,
+                                 ids)
+        for out, k in zip(bkeys, _smallest_keys(bkey, ranks)):
+            out[s:e] = k
+    extras = [k if return_packed else decode_cluster_key(k, nc)
+              for k in bkeys[1:]]
+    return (decode_cluster_key(skey1, nc), decode_cluster_key(bkeys[0], nc),
+            bkeys[0], *extras)

@@ -1,0 +1,156 @@
+"""The rank-directed closest walk on Hopper.
+
+The port's counterpart of ``trace_pallas.trace_closest_rank`` and its TPU
+kernel ``_rank_closest_kernel``: :func:`trace_closest_rank` launches
+``closest_rank_kernel`` (``csrc/trace_rank.cu``) for tensors on a CUDA
+device, where it never falls back, and runs the plain PyTorch version
+:func:`closest_rank_ref` for tensors on the CPU.
+``trace_closest_rank.launches`` counts the kernel's launches.
+
+Each ray brings its K nearest candidate clusters as packed
+``(bits(t_entry) & ~0xFFF) | cluster id`` keys, rank 1 first
+(``broadphase_cuda.nearest_cluster(..., return_packed=True)``; the
+renderer carries them through its compaction sort), and the walk takes the
+minimum packed hit key ``(bits(t) & ~0x1FF) | in-cluster index`` over the
+seed and those clusters only, near to far, skipping a candidate whose
+chopped entry is not below the chopped best.  The result covers ranks 1..K:
+:func:`rank_certificate` says which rays that settles (the best lies a chop
+step below the rank-(K+1) entry, or there is no such candidate), and the
+caller re-traces the others with ``trace_cuda.trace_closest``, seeded with
+this walk's key and base.
+
+Against the TPU kernel: that one dense-tests each popped cluster against
+all 128 rays of its tile, so a lane may also get hits from clusters only
+its neighbours asked for.  On certified rays the two agree; elsewhere the
+TPU key can be the smaller one, and after the fallback both equal the full
+walk.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..accel import BVHSpec
+from .broadphase_cuda import NC_IDM, NC_SENT
+from .trace_cuda import (IDX_BITS, IDX_MASK, N_TRI_PLANES, _INIT_KEY,
+                         _check_rays, _check_tables, _key_to_t, _plane_hits,
+                         _ptr, _raise_on, _stream)
+
+__all__ = ["trace_closest_rank", "closest_rank_ref", "rank_certificate"]
+
+# Elements of one gathered (12, rays, cluster_size) plane block of the plain
+# version: 64 MB of float32.
+_REF_GATHER_ELEMS = 1 << 24
+
+
+def _entry_t(pk: torch.Tensor) -> torch.Tensor:
+    """Chopped slab-entry distance of a packed broad-phase key."""
+    return (pk & ~NC_IDM).view(torch.float32)
+
+
+def _start(n, spec: BVHSpec, seed_key, device):
+    """(key, base) a ray starts from: the seed with base ``global_base``,
+    or without a seed the init key with base 0, as the TPU kernel."""
+    if seed_key is None:
+        return (torch.full((n,), _INIT_KEY, dtype=torch.int32, device=device),
+                torch.zeros((n,), dtype=torch.int32, device=device))
+    return (seed_key.to(torch.int32).clone(),
+            torch.full((n,), spec.global_base, dtype=torch.int32,
+                       device=device))
+
+
+def closest_rank_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
+                     seed_key=None):
+    """Plain version of ``closest_rank_kernel``: rank by rank, the rays
+    whose candidate survives the cull gather its ``cluster_size`` plane
+    columns and take the minimum packed key, with the kernels' plane test.
+    Returns ``(key (N,) i32, base (N,) i32)``."""
+    n = o.shape[0]
+    c = spec.cluster_size
+    key, base = _start(n, spec, seed_key, o.device)
+    lane = torch.arange(c, dtype=torch.int32, device=o.device)
+    step = max(1, _REF_GATHER_ELEMS // (N_TRI_PLANES * c))
+    for pk in rank_keys:
+        go = mask & (pk != NC_SENT) & (_entry_t(pk) < _key_to_t(key))
+        rays = go.nonzero()[:, 0]
+        for s in range(0, rays.shape[0], step):
+            r = rays[s:s + step]
+            cbase = (pk[r] & NC_IDM) * c
+            cols = (cbase[:, None] + lane[None, :]).long()
+            t, hit = _plane_hits(o[r], d[r], tri[:, cols])
+            vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
+            vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
+            take = vkey < key[r]
+            key[r] = torch.where(take, vkey, key[r])
+            base[r] = torch.where(take, cbase, base[r])
+    return key, base
+
+
+def trace_closest_rank(o, d, mask, rank_keys, tri, spec: BVHSpec,
+                       seed_key=None):
+    """Rank-directed closest walk over each ray's candidate clusters:
+    ``closest_rank_kernel`` on a CUDA device, :func:`closest_rank_ref` on
+    the CPU (``trace_pallas.trace_closest_rank``).
+
+    ``rank_keys``: K >= 1 (N,) int32 packed candidate keys, ranks 1..K.
+    ``seed_key``: the (N,) int32 host seed of ``global_seed_keys``; a scene
+    with a global set needs it, for the walk has no global test of its own.
+    Returns ``(key, base)``: the packed best key and the slot base it counts
+    from; decode with ``found = key < MISS``, ``t = key_to_t(key)``,
+    ``tri = base + (key & IDX_MASK)``."""
+    rank_keys = list(rank_keys)
+    if not rank_keys:
+        raise ValueError("the rank walk needs at least one candidate key")
+    if spec.num_global > 0 and seed_key is None:
+        raise ValueError("trace_closest_rank needs the host global seed on "
+                         "scenes with a global set")
+    if spec.cluster_size > (1 << IDX_BITS):
+        raise ValueError(f"cluster_size {spec.cluster_size} does not fit the "
+                         f"{IDX_BITS}-bit in-cluster index of the packed key")
+    n = o.shape[0]
+    named = [(f"rank_keys[{k}]", x) for k, x in enumerate(rank_keys)]
+    if seed_key is not None:
+        named.append(("seed_key", seed_key))
+    _check_rays(o, d, mask, tuple((name, x, (n,), torch.int32)
+                                  for name, x in named))
+    if o.device.type == "cpu":
+        return closest_rank_ref(o, d, mask, rank_keys, tri, spec, seed_key)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    _check_tables(o.device, tri=tri)
+    if (tri.dim() != 2 or tri.shape[0] != N_TRI_PLANES
+            or tri.shape[1] < spec.num_clusters * spec.cluster_size):
+        raise ValueError(f"bad plane table: tri {tuple(tri.shape)}")
+    from ._build import load_library
+
+    lib = load_library()
+    key = torch.empty((n,), dtype=torch.int32, device=o.device)
+    base = torch.empty((n,), dtype=torch.int32, device=o.device)
+    if n:
+        o_c, d_c, m_c = o.contiguous(), d.contiguous(), mask.contiguous()
+        s_c = None if seed_key is None else seed_key.contiguous()
+        keys_c = torch.stack(rank_keys)  # (K, N), rank 1 first
+        tri_c = tri.contiguous()
+        err = lib.launch_closest_rank(
+            _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(keys_c),
+            _ptr(tri_c), n, len(rank_keys), spec.cluster_size,
+            tri_c.shape[1], spec.global_base, _ptr(key), _ptr(base),
+            _stream(o.device))
+        _raise_on(err, lib, "closest_rank_kernel")
+        trace_closest_rank.launches += 1
+    return key, base
+
+
+trace_closest_rank.launches = 0
+
+
+def rank_certificate(key, rank_next_key):
+    """Which rays the rank walk has settled (``trace_pallas
+    .rank_certificate``): the chopped best plus one chop step is not above
+    the rank-(K+1) candidate's chopped entry (candidates come sorted by
+    entry, and a hit inside a box lies at or beyond its entry), or there is
+    no such candidate.  Both sides are chopped down, at 9 and 12 bits; the
+    one-step margin keeps the compare on the safe side, so a wrong "no" only
+    sends one more ray to the fallback."""
+    t_plus = ((key & ~IDX_MASK) + (1 << IDX_BITS)).view(torch.float32)
+    return (rank_next_key == NC_SENT) | (t_plus <= _entry_t(rank_next_key))

@@ -24,9 +24,11 @@ over packed keys ``(bits(t) & ~IDX_MASK) | in-cluster index``: positive
 float bits order like their values, so the minimum is the nearest hit with t
 chopped to 512 ulp, and ties go to the smaller in-cluster index.  The walk
 starts from the host seed key (the global set's best hit) with base
-``global_base``; a cluster's result replaces the running best only when its
-key is strictly smaller.  A miss returns ``t = key_to_t(INIT)`` (BIG_T
-chopped) and ``tri = -1``; a dead lane returns what its seed says.
+``global_base``, or with the per-ray ``seed_base`` the hierarchical walk
+takes (the rank-directed walk's best so far, ``ops.rank_cuda``); a cluster's
+result replaces the running best only when its key is strictly smaller.  A
+miss returns ``t = key_to_t(INIT)`` (BIG_T chopped) and ``tri = -1``; a dead
+lane returns what its seed says.
 """
 
 from __future__ import annotations
@@ -217,12 +219,14 @@ def recompute_tuv(o, d, rows, eps: float = 1e-20):
 
 def _plane_hits(o, d, rows):
     """(n, C) hit distance and hit mask of rays (n, 3) against plane rows
-    (12, C), in the kernels' op order: ``rcp = 1/den`` refined by one Newton
-    step, ``t = (n.v0 - n.o) * rcp``, barycentrics at ``p = o + t d``
+    (12, C) shared by all rays, or (12, n, C) gathered per ray, in the
+    kernels' op order: ``rcp = 1/den`` refined by one Newton step,
+    ``t = (n.v0 - n.o) * rcp``, barycentrics at ``p = o + t d``
     (``trace_pallas._mt_block``)."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    nx, ny, nz, dc, ux, uy, uz, uw, vx, vy, vz, vw = (r[None, :] for r in rows)
+    nx, ny, nz, dc, ux, uy, uz, uw, vx, vy, vz, vw = (
+        r if r.dim() == 2 else r[None, :] for r in rows)
     den = nx * dx + ny * dy + nz * dz
     rcp = 1.0 / den
     rcp = rcp * (2.0 - den * rcp)
@@ -242,11 +246,14 @@ def _ray_chunks(n: int, width: int):
         yield s, min(n, s + step)
 
 
-def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None):
+def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None,
+                     seed_base=None):
     """Plain version of ``closest_flat_kernel`` and ``closest_hier_kernel``:
     both compute the minimum packed key over every clustered triangle from
     the seed, which this takes by brute force with the kernels' packed key,
-    seed and hit test.  Returns ``(t_chop (N,) f32, tri (N,) i32)``.
+    seed and hit test.  ``seed_base`` (N,) int32 is the slot base the seed
+    key's index counts from (``closest_hier_kernel`` only; default
+    ``global_base``).  Returns ``(t_chop (N,) f32, tri (N,) i32)``.
 
     Ties: the seed wins a tie with a cluster, and the lower cluster index
     wins among clusters.  The kernels walk clusters nearest-first instead
@@ -260,8 +267,9 @@ def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None):
     key0 = (torch.full((n,), _INIT_KEY, dtype=torch.int32, device=dev)
             if seed_key is None else seed_key.to(torch.int32))
     best_key = key0.clone()
-    best_base = torch.full((n,), spec.global_base, dtype=torch.int32,
-                           device=dev)
+    best_base = (torch.full((n,), spec.global_base, dtype=torch.int32,
+                            device=dev)
+                 if seed_base is None else seed_base.to(torch.int32).clone())
     rows = tri[:, :nc * c]
     lane = torch.arange(c, dtype=torch.int32, device=dev).repeat(nc)
     live = mask.nonzero()[:, 0]  # a dead ray keeps its seed
@@ -361,7 +369,7 @@ def _stream(device) -> ctypes.c_void_p:
 
 
 def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                  flat=None) -> Hit:
+                  flat=None, seed_base=None) -> Hit:
     """Closest hit of each ray: ``closest_flat_kernel`` or
     ``closest_hier_kernel`` on a CUDA device (``flat`` as
     ``trace_pallas.trace_closest``: None picks by cluster count),
@@ -370,17 +378,28 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
     ``sup`` (nsp, 6), ``clu`` (NS, S, 6) and ``tri`` (12, T) are the packed
     planes of :func:`pack_scene_planes`; ``seed_key`` the per-ray host seed
     of :func:`global_seed_keys` (computed here when the scene has a global
-    set and none is given).  Returns a :class:`Hit` whose ``t`` is the
+    set and none is given).  ``seed_base`` (N,) int32 gives each ray the
+    slot base of its seed key in place of ``global_base`` (the rank-directed
+    walk's best as the seed); it needs ``seed_key`` and the hierarchical
+    kernel, as in the reference.  Returns a :class:`Hit` whose ``t`` is the
     chopped distance of the packed key (``u``/``v`` are zeros): the renderer
     recomputes the exact t from the shade row."""
+    if seed_base is not None:
+        if seed_key is None:
+            raise ValueError("seed_base needs the seed_key it belongs to")
+        if _use_flat(spec, flat):
+            raise ValueError("seed_base requires the hierarchical kernel "
+                             "(pass flat=False)")
     if seed_key is None and spec.num_global:
         seed_key = global_seed_keys(o, d, mask, tri, spec)
     n = o.shape[0]
-    extra = () if seed_key is None else (
-        ("seed_key", seed_key, (n,), torch.int32),)
+    extra = tuple((name, x, (n,), torch.int32)
+                  for name, x in (("seed_key", seed_key),
+                                  ("seed_base", seed_base)) if x is not None)
     _check_rays(o, d, mask, extra)
     if o.device.type == "cpu":
-        t, tri_id = closest_flat_ref(o, d, mask, tri, spec, seed_key)
+        t, tri_id = closest_flat_ref(o, d, mask, tri, spec, seed_key,
+                                     seed_base)
     elif o.device.type == "cuda":
         from ._build import load_library
 
@@ -389,14 +408,15 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
         lib = load_library()
         o_c, d_c, m_c = o.contiguous(), d.contiguous(), mask.contiguous()
         s_c = None if seed_key is None else seed_key.contiguous()
+        sb_c = None if seed_base is None else seed_base.contiguous()
         t = torch.empty((n,), dtype=torch.float32, device=o.device)
         tri_id = torch.empty((n,), dtype=torch.int32, device=o.device)
         if n and hier:
             err = lib.launch_closest_hier(
-                _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sup_c),
-                _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0], clu_c.shape[1],
-                spec.cluster_size, tri_c.shape[1], spec.global_base, _ptr(t),
-                _ptr(tri_id), _stream(o.device))
+                _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sb_c),
+                _ptr(sup_c), _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0],
+                clu_c.shape[1], spec.cluster_size, tri_c.shape[1],
+                spec.global_base, _ptr(t), _ptr(tri_id), _stream(o.device))
             _raise_on(err, lib, "closest_hier_kernel")
             trace_closest.launches_hier += 1
         elif n:
@@ -464,9 +484,12 @@ trace_any.launches_hier = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch counts (the broad phase's too)."""
+    """Zero every kernel wrapper's launch counts (the broad phase's and the
+    rank walk's too)."""
     from .broadphase_cuda import broadphase_keys
+    from .rank_cuda import trace_closest_rank
 
     trace_closest.launches = trace_closest.launches_hier = 0
     trace_any.launches = trace_any.launches_hier = 0
     broadphase_keys.launches = 0
+    trace_closest_rank.launches = 0

@@ -7,11 +7,18 @@ gather with branchless masked math, given one light sample and a shadow ray
 (any hit), and re-emitted along a cosine-weighted bounce direction.  Samples
 fold into a progressive average.
 
-The port runs the reference's ``compaction=False`` wavefront: rays keep
-their pixel (tile) order through every bounce.  The reference's compaction
-sorts are a pure permutation of the rays and leave the image unchanged;
-porting them is ROADMAP.md's next item.  The shading extensions (specular,
-emission, environment map, textures, refraction) are not ported yet.
+With ``compaction=False`` (the port's default) rays keep their pixel (tile)
+order through every bounce.  With ``compaction=True`` the rays of bounces
+>= 1 are sorted by a cluster key from the exact broad phase, the shadow rays
+are re-sorted by their own, rays that the broad phase proves can only hit
+the global set skip the closest kernel, and with ``rank_trace=2`` the sorted
+bounce passes take the rank-directed walk (``ops.rank_cuda``) with the
+hierarchical kernel as its fallback.  All of that is a permutation of the
+rays plus exact shortcuts: the image is unchanged.  The reference's
+multi-operand ``lax.sort`` is one ``torch.sort`` of the key and a gather of
+the per-ray state by its permutation.  Nothing on the path waits for the
+device.  The shading extensions (specular, emission, environment map,
+textures, refraction) are not ported yet.
 
 Both tracers of the port, the CUDA kernels and their plain PyTorch
 versions, return the packed key's chopped hit distance, so the renderer
@@ -30,14 +37,23 @@ import torch
 
 from . import sampling
 from .lights import sample_lights, select_light
-from .ops import trace_cuda
-from .ops.broadphase_cuda import broadphase_keys, broadphase_ref
+from .ops import rank_cuda, trace_cuda
+from .ops.broadphase_cuda import (BROADPHASE_MAX_CLUSTERS, NC_IDM,
+                                  broadphase_keys, broadphase_ref,
+                                  decode_cluster_key, nearest_cluster,
+                                  nearest_cluster_pair)
 from .ops.intersect import Hit
 from .scene import Scene, SceneData, SceneSpec
 from .types import RenderConfig
 
 __all__ = ["render_sample", "render_rays", "pixel_coords", "accumulate",
-           "Renderer", "make_pixel_offsets", "make_tracers", "resolve_tracer"]
+           "Renderer", "make_pixel_offsets", "make_tracers",
+           "make_closest_rank", "resolve_tracer"]
+
+# Sort keys stay below this; dead rays take it and sort last.
+_DEAD_KEY = 1 << 30
+# The cluster sort keys hold a cluster id in at most 12 bits.
+_MAX_KEY_CLUSTERS = 4095
 
 
 def make_pixel_offsets(cfg: RenderConfig, device="cpu") -> torch.Tensor:
@@ -65,23 +81,24 @@ def resolve_tracer(cfg: RenderConfig, device) -> str:
 
 
 def make_tracers(data: SceneData, spec: SceneSpec, tracer: str):
-    """(closest(o, d, mask, seed) -> Hit, any_hit(o, d, max_t, mask) ->
-    bool) over the scene's packed planes: the kernel wrappers for
-    ``tracer="cuda"``, their plain versions for ``"torch"``."""
+    """(closest(o, d, mask, seed, seed_base=None) -> Hit, any_hit(o, d,
+    max_t, mask) -> bool) over the scene's packed planes: the kernel
+    wrappers for ``tracer="cuda"``, their plain versions for ``"torch"``."""
     if tracer == "cuda":
-        def closest(o, d, m, seed):
+        def closest(o, d, m, seed, seed_base=None):
             return trace_cuda.trace_closest(o, d, m, data.sup_planes,
                                             data.clu_planes, data.tri_planes,
-                                            spec.bvh, seed)
+                                            spec.bvh, seed,
+                                            seed_base=seed_base)
 
         def any_hit(o, d, mt, m):
             return trace_cuda.trace_any(o, d, mt, m, data.sup_planes,
                                         data.clu_planes, data.tri_planes,
                                         spec.bvh)
     else:
-        def closest(o, d, m, seed):
+        def closest(o, d, m, seed, seed_base=None):
             t, tri = trace_cuda.closest_flat_ref(o, d, m, data.tri_planes,
-                                                 spec.bvh, seed)
+                                                 spec.bvh, seed, seed_base)
             z = torch.zeros_like(t)
             return Hit(t=t, u=z, v=z, tri=tri)
 
@@ -91,17 +108,85 @@ def make_tracers(data: SceneData, spec: SceneSpec, tracer: str):
     return closest, any_hit
 
 
-def _fused_global(tracer: str, cfg: RenderConfig, data: SceneData, bvh,
-                  o, d, mask, max_t=None) -> torch.Tensor:
-    """The global set's closest seed key, or with ``max_t`` its 0/1
-    occlusion, from the fused broad phase (``cfg.fused_broadphase``): the
-    kernel for ``tracer="cuda"``, its plain version otherwise."""
-    kw = dict(max_t=max_t, with_clusters=False, any_mode=max_t is not None)
+def make_closest_rank(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
+                      tracer: str, closest):
+    """``closest_rank(o, d, mask, rank_keys, seed) -> (Hit, unresolved
+    count)`` for ``cfg.rank_trace``, or None where the walk is off: on a
+    flat scene, and on a scene with a global set unless the miss fold's
+    global pass gives the walk its seed (``host_seed`` and
+    ``cluster_miss_fold``), as in the reference.
+
+    ``rank_keys`` are the K + 1 packed candidate keys of ranks 1..K+1 in
+    this call's ray order.  The walk (the kernel for ``tracer="cuda"``, its
+    plain version otherwise) tests ranks 1..K; :func:`rank_cuda
+    .rank_certificate` holds its best against rank K + 1; ``closest`` (the
+    hierarchical tracer of :func:`make_tracers`) re-traces the uncertified
+    rays, seeded per ray with the walk's key and base.  The reference sorts
+    those stragglers to the front and back again so that whole TPU tiles
+    die; a one-thread-per-ray kernel returns at once on a masked ray, so the
+    fallback runs in place (on an H100, packing dragon 1024x1024's
+    stragglers to the front first made the fallback no faster: they are
+    the rays with the long walks; PERF.md)."""
+    bvh = spec.bvh
+    if (not cfg.rank_trace or trace_cuda._use_flat(bvh)
+            or not (bvh.num_global == 0
+                    or (cfg.host_seed and cfg.cluster_miss_fold))):
+        return None
+    walk = (rank_cuda.trace_closest_rank if tracer == "cuda"
+            else rank_cuda.closest_rank_ref)
+
+    def closest_rank(o, d, m, rank_keys, seed):
+        k = len(rank_keys) - 1
+        key, base = walk(o, d, m, list(rank_keys[:k]), data.tri_planes, bvh,
+                         seed)
+        unresolved = m & ~rank_cuda.rank_certificate(key, rank_keys[k])
+        fb = closest(o, d, unresolved, key, base)
+        found = key < trace_cuda._MISS_KEY
+        tri_r = torch.where(found, base + (key & trace_cuda.IDX_MASK), -1)
+        t = torch.where(unresolved, fb.t, trace_cuda._key_to_t(key))
+        tri = torch.where(unresolved, fb.tri, tri_r)
+        z = torch.zeros_like(t)
+        return Hit(t=t, u=z, v=z, tri=tri), unresolved.sum()
+
+    return closest_rank
+
+
+def _fused_keys(tracer: str, cfg: RenderConfig, data: SceneData, bvh,
+                o, d, mask, **kw):
+    """``(key1, key2, g)`` of the fused broad phase
+    (``cfg.fused_broadphase``): the kernel for ``tracer="cuda"``, its plain
+    version otherwise; ``kw`` as :func:`broadphase_keys` takes it."""
     if tracer == "cuda":
         return broadphase_keys(o, d, mask, data.clu_planes, data.tri_planes,
-                               bvh, block=cfg.broadphase_block, **kw)[2]
+                               bvh, block=cfg.broadphase_block, **kw)
     return broadphase_ref(o, d, mask, data.clu_planes, data.tri_planes, bvh,
-                          **kw)[2]
+                          **kw)
+
+
+def _expand_bits_9(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 9 bits so they occupy every 3rd bit (Morton)."""
+    v = v & 0x1FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _morton_512(points: torch.Tensor, data: SceneData) -> torch.Tensor:
+    """(N,) int32 27-bit Morton codes of points on a 512^3 grid over the
+    root box: the origin part of the bounce and shadow sort keys."""
+    root_lo = data.node_lo[0]
+    root_ext = torch.clamp(data.node_hi[0] - root_lo, min=1e-12)
+    q = torch.clamp(((points - root_lo) / root_ext) * 512.0, 0.0,
+                    511.0).to(torch.int32)
+    return (_expand_bits_9(q[:, 0]) << 2 | _expand_bits_9(q[:, 1]) << 1
+            | _expand_bits_9(q[:, 2]))
+
+
+def _from_end(bounce_from: int, max_bounces: int) -> int:
+    """A bounce threshold; negative values count from the last bounce."""
+    return bounce_from if bounce_from >= 0 else max_bounces + bounce_from
 
 
 def pixel_coords(cfg: RenderConfig, device="cpu"):
@@ -152,10 +237,13 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     """Path-trace one sample for a flat set of pixels.
 
     ``tracers`` overrides the (closest, any_hit) pair of
-    :func:`make_tracers` (a caller may wrap it to record each pass's rays).
-    Returns ((N, 3) radiance, stats); ``stats`` counts the traced rays for
-    the Mrays/s metric: ``closest_rays`` and ``shadow_rays`` (0-d int64
-    tensors, left on the device)."""
+    :func:`make_tracers`, or with a third entry also the ``closest_rank``
+    of :func:`make_closest_rank` (a caller may wrap them to record each
+    pass's rays).  Returns ((N, 3) radiance, stats); ``stats`` counts the
+    traced rays for the Mrays/s metric, ``closest_rays`` and
+    ``shadow_rays``, and where the rank walk ran the rays it left to the
+    fallback, ``rank_unresolved_b<bounce>`` (all 0-d integer tensors, left
+    on the device)."""
     w, h = cfg.width, cfg.height
     n = px.shape[0]
     dev = px.device
@@ -171,6 +259,14 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     lcount = spec.light_count
     bvh = spec.bvh
     fold_global = cfg.host_seed and bvh.num_global > 0
+    nc_tot = data.clu_planes.shape[0] * data.clu_planes.shape[1]
+    if cfg.compaction and nc_tot > _MAX_KEY_CLUSTERS:
+        raise ValueError(
+            f"compaction's cluster sort keys take <= {_MAX_KEY_CLUSTERS} "
+            f"padded clusters, this scene has {nc_tot}; render it with "
+            "compaction=False")
+    fused_keys = cfg.fused_broadphase and nc_tot <= BROADPHASE_MAX_CLUSTERS
+    shadow_key_from = _from_end(cfg.shadow_hit_key_from, cfg.max_bounces)
 
     px = torch.nn.functional.pad(px, (0, pad))
     py = torch.nn.functional.pad(py, (0, pad))
@@ -188,25 +284,225 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                    + uv_y[:, None] * cam.up[None] + cam.forward[None])
     o = cam.position[None].expand(p, 3)
 
-    closest_fn, any_fn = tracers or make_tracers(data, spec, tracer)
+    tracers = tuple(tracers or make_tracers(data, spec, tracer))
+    closest_fn, any_fn = tracers[:2]
+    closest_rank_fn = (tracers[2] if len(tracers) > 2 else
+                       make_closest_rank(data, spec, cfg, tracer, closest_fn))
     color = torch.ones((p, 3), device=dev)  # path throughput (:226)
     accum = torch.zeros((p, 3), device=dev)
-    closest_count = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow_count = torch.zeros((), dtype=torch.int64, device=dev)
+    # ``cur`` maps the current (compacted) ray order back to the padded
+    # pixel slot; the radiance scatters through it at the end.
+    cur = torch.arange(p, dtype=torch.int32, device=dev)
+    stats: Dict[str, torch.Tensor] = {
+        "closest_rays": torch.zeros((), dtype=torch.int64, device=dev),
+        "shadow_rays": torch.zeros((), dtype=torch.int64, device=dev)}
 
-    for bounce in range(cfg.max_bounces):
-        closest_count += alive.sum()
+    def sorts_at(bounce: int) -> bool:
+        """Do this bounce's rays go through the compaction sort?"""
+        return cfg.compaction and bounce > 0
+
+    def shadow_sorts_at(bounce: int) -> bool:
+        return cfg.shadow_sort and cfg.compaction and bounce > 0
+
+    def rank_at_sort(bounce: int) -> bool:
+        """Does ``bounce_sort(bounce)`` emit the packed rank 1..3 keys for
+        the rank-directed walk?  (The fused kernel gives no third rank.)"""
+        return (closest_rank_fn is not None and cfg.sort_bounces
+                and cfg.sort_key == "cluster2" and not fused_keys)
+
+    def pair_at(bounce: int) -> bool:
+        """Does ``bounce_tail(bounce)`` take its shadow key and the next
+        bounce's sort keys from one ``nearest_cluster_pair`` sweep?  Only
+        where both use the exact broad phase over the shared origin."""
+        return (cfg.pair_broadphase and not fused_keys
+                and cfg.sort_key == "cluster2" and bounce < shadow_key_from
+                and shadow_sorts_at(bounce) and bounce + 1 < cfg.max_bounces
+                and sorts_at(bounce + 1) and cfg.sort_bounces)
+
+    def bounce_sort(bounce, o, d, color, accum, idx, cur, alive, carried_bp):
+        """Compaction-sort one bounce's rays.  ``carried_bp`` holds this
+        bounce's keys where the previous tail's pair sweep computed them.
+        Returns the permuted per-ray state, ``known_miss`` (live rays the
+        broad phase proved can hit no cluster; None when the fold is off)
+        and the sorted rank keys (None unless :func:`rank_at_sort`)."""
+        known_miss = rank_keys = None
+        if cfg.sort_bounces:
+            # Live rays grouped by their nearest slab-hit cluster (and the
+            # second nearest below it), then direction cone, then origin
+            # Morton: neighbouring rays share their first traversal visits.
+            # Cluster ids follow the Morton order of the BVH build.
+            m = _morton_512(o, data)
+            want2 = cfg.sort_key == "cluster2"
+            cbits = max(1, nc_tot.bit_length())
+            db = 2  # direction bits per axis: 64 cones
+            avail = 30 - cbits - 3 * db
+            c2bits = min(cbits, max(0, avail)) if want2 else 0
+            mbits = max(0, avail - c2bits)
+            gk_fused = cid2 = None
+            if carried_bp is not None:
+                cid, nckey = carried_bp[0], carried_bp[1]
+                if len(carried_bp) >= 4:  # packed ranks 2 and 3
+                    cid2 = decode_cluster_key(carried_bp[2], nc_tot)
+                    rank_keys = (nckey, carried_bp[2], carried_bp[3])
+                else:
+                    cid2 = carried_bp[2]
+            elif rank_at_sort(bounce):
+                # ranks 1..2 drive the walk, rank 3 is its certificate
+                cid, nckey, k2p, k3p = nearest_cluster(
+                    o, d, alive, data.clu_planes, bvh, return_key=True,
+                    return_second=2, return_packed=True)
+                cid2 = decode_cluster_key(k2p, nc_tot)
+                rank_keys = (nckey, k2p, k3p)
+            elif fused_keys:
+                nckey, k2f, gk_fused = _fused_keys(
+                    tracer, cfg, data, bvh, o, d, alive, want2=want2)
+                cid = decode_cluster_key(nckey, nc_tot)
+                if want2:
+                    cid2 = decode_cluster_key(k2f, nc_tot)
+            elif want2:
+                cid, nckey, cid2 = nearest_cluster(
+                    o, d, alive, data.clu_planes, bvh, return_key=True,
+                    return_second=1)
+            else:
+                cid, nckey = nearest_cluster(o, d, alive, data.clu_planes,
+                                             bvh, return_key=True)
+            if cfg.cluster_miss_fold and bvh.num_global > 0:
+                # A ray whose nearest cluster is entered beyond its
+                # global-set hit finds nothing closer in any cluster: it
+                # joins the no-cluster group.  One chop step of margin
+                # covers both keys' truncated mantissas, one more the fused
+                # kernel's Newton-refined t (a quarter step off the exact
+                # divide); the margin only ever folds fewer rays.
+                gk = (gk_fused if gk_fused is not None
+                      else trace_cuda.global_seed_keys(o, d, alive,
+                                                       data.tri_planes, bvh))
+                tn_f = (nckey & ~NC_IDM).view(torch.float32)
+                g_plus = ((gk & ~trace_cuda.IDX_MASK)
+                          + ((2 if gk_fused is not None else 1)
+                             << trace_cuda.IDX_BITS)).view(torch.float32)
+                beats = (gk < trace_cuda._MISS_KEY) & (tn_f >= g_plus)
+                cid = torch.where(beats, nc_tot, cid)
+            shift = 30 - cbits
+            key = cid << shift
+            if c2bits:
+                shift -= c2bits
+                key = key | ((cid2 & ((1 << c2bits) - 1)) << shift)
+            lvl = 1 << (db - 1)
+            q = torch.clamp(((d + 1.0) * lvl).to(torch.int32), 0, 2 * lvl - 1)
+            shift -= 3 * db
+            key = key | (((q[:, 0] << (2 * db)) | (q[:, 1] << db) | q[:, 2])
+                         << shift)
+            key = key | (m >> max(0, 27 - mbits))
+            key = torch.where(alive, key, _DEAD_KEY)
+            skey, perm = torch.sort(key)  # tie order is free
+        else:
+            # Partition only: live rays first, in their (tile) order.
+            key = torch.where(alive, 0, _DEAD_KEY).to(torch.int32)
+            skey, perm = torch.sort(key, stable=True)
+        o, d, color, accum = o[perm], d[perm], color[perm], accum[perm]
+        idx, cur = idx[perm], cur[perm]
+        alive = skey < _DEAD_KEY
+        if rank_keys is not None:
+            rank_keys = tuple(k[perm] for k in rank_keys)
+        if cfg.sort_bounces and cfg.cluster_miss_fold:
+            # the no-cluster group sits just below the dead sentinel
+            known_miss = alive & ((skey >> (30 - cbits)) == nc_tot)
+        return o, d, color, accum, idx, cur, alive, known_miss, rank_keys
+
+    def shadow_trace(bounce, shadow_o, sdir, sdist, light_idx, tri,
+                     kernel_shadow, sk1, pair_scid):
+        """The any-hit pass of one bounce, through the shadow re-sort where
+        it applies; returns (N,) occlusion in the caller's ray order."""
+        if not shadow_sorts_at(bounce):
+            return any_fn(shadow_o, sdir, sdist, kernel_shadow)
+        # Shadow origins are this bounce's scattered hit points and the
+        # direction follows from the origin (it points at the light), so the
+        # key is (nearest cluster the segment can hit, light, origin
+        # Morton).  A segment that overlaps no cluster is clear: with the
+        # fold it skips the kernel (global-set occlusion is already out of
+        # ``kernel_shadow``).
+        m = _morton_512(shadow_o, data)
+        bits_l = max(1, (lcount - 1).bit_length())
+        if bounce >= shadow_key_from:
+            # The ray starts on this bounce's hit triangle, inside its
+            # cluster's box: that cluster is the key, for free (hits on the
+            # global set form a group of their own), and the fold tests the
+            # super boxes (no super overlap, no cluster overlap).
+            scid = torch.where(
+                tri >= bvh.global_base, nc_tot,
+                torch.clamp(tri // bvh.cluster_size, max=nc_tot - 1))
+            if cfg.cluster_miss_fold:
+                sid = nearest_cluster(shadow_o, sdir, kernel_shadow,
+                                      data.sup_planes[:, None, :], bvh,
+                                      max_t=sdist)
+                kernel_shadow = kernel_shadow & (
+                    sid < data.sup_planes.shape[0])
+        else:
+            if sk1 is not None:  # the fused pass already ran
+                scid = decode_cluster_key(sk1, nc_tot)
+            elif pair_scid is not None:  # so did the pair sweep
+                scid = pair_scid
+            else:
+                scid = nearest_cluster(shadow_o, sdir, kernel_shadow,
+                                       data.clu_planes, bvh, max_t=sdist)
+            if cfg.cluster_miss_fold:
+                kernel_shadow = kernel_shadow & (scid < nc_tot)
+        cbits_s = max(1, nc_tot.bit_length())
+        mbits_s = max(0, 30 - cbits_s - bits_l)
+        skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
+                | (m >> max(0, 27 - mbits_s)))
+        skey = torch.where(kernel_shadow, skey, _DEAD_KEY)
+        skey, perm = torch.sort(skey)
+        res = any_fn(shadow_o[perm], sdir[perm], sdist[perm],
+                     skey < _DEAD_KEY)
+        occluded = torch.empty_like(res)
+        occluded[perm] = res  # back to the caller's order
+        return occluded
+
+    def bounce_tail(bounce, o, d, color, accum, idx, alive, known_miss,
+                    rank_keys):
+        """Closest hit, shading, the light sample and its shadow ray, and
+        the bounce continuation: everything after the compaction sort.
+        Returns the per-ray state and the next bounce's carried keys (None
+        unless :func:`pair_at`)."""
+        stats["closest_rays"] += alive.sum()
         # The closest pass is always seeded on the host side: the port's
         # kernels have no in-kernel global-set test.
-        seed = None
-        if bvh.num_global and cfg.fused_broadphase:
-            seed = _fused_global(tracer, cfg, data, bvh, o, d, alive)
+        m_kernel = alive
+        gkey = seed = None
+        if known_miss is not None:
+            m_kernel = alive & ~known_miss
+            if bvh.num_global:
+                # one global pass seeds the kernel (folded rays start from
+                # the init key) and gives the folded rays their hits below
+                gkey = trace_cuda.global_seed_keys(o, d, alive,
+                                                   data.tri_planes, bvh)
+                seed = torch.where(known_miss, trace_cuda._INIT_KEY, gkey)
+        elif bvh.num_global and cfg.fused_broadphase:
+            seed = _fused_keys(tracer, cfg, data, bvh, o, d, alive,
+                               with_clusters=False)[2]
         elif bvh.num_global:
             seed = trace_cuda.global_seed_keys(o, d, alive, data.tri_planes,
                                                bvh)
-        hit = closest_fn(o, d, alive, seed)
+        if rank_keys is not None:
+            hit, unresolved = closest_rank_fn(o, d, m_kernel, rank_keys, seed)
+            stats[f"rank_unresolved_b{bounce}"] = unresolved
+        else:
+            hit = closest_fn(o, d, m_kernel, seed)
+        if gkey is not None:
+            # Global-set hits of the folded rays, in the packing the kernel
+            # would have returned; sky rays stay misses.
+            gfound = known_miss & (gkey < trace_cuda._MISS_KEY)
+            hit = Hit(t=torch.where(gfound, trace_cuda._key_to_t(gkey),
+                                    hit.t),
+                      u=hit.u, v=hit.v,
+                      tri=torch.where(
+                          gfound,
+                          bvh.global_base + (gkey & trace_cuda.IDX_MASK),
+                          hit.tri))
         alive = alive & hit.found  # the megakernel's break on miss (:246-247)
-        row = data.shade_table[hit.tri.clamp(min=0).long()]
+        tri = hit.tri.clamp(min=0)
+        row = data.shade_table[tri.long()]
 
         # Exact hit distance from the winner's plane [n, n.v0] in the shade
         # row: t = (n.v0 - n.o) / (n.d); the tracer's t is chopped.
@@ -237,36 +533,69 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         # Diffuse throughput for this vertex's light sample (:339).
         dcolor = torch.where(alive[:, None], color * base_color, color)
         do_shadow = alive & (sampling.norm(lcolor)[:, 0] > 1e-4)  # :341
-        shadow_count += do_shadow.sum()
+        stats["shadow_rays"] += do_shadow.sum()
         shadow_o = pos + ns * 1e-3  # :350
         sdist = ls.distance - 1e-3
         # Global-set occlusion on the host side of the kernel: rays the
         # scene-spanning planes occlude leave the kernel's mask (they still
-        # count as traced shadow rays).
-        if fold_global and cfg.fused_broadphase:
-            g_occ = _fused_global(tracer, cfg, data, bvh, shadow_o,
-                                  ls.direction, do_shadow, sdist) > 0
+        # count as traced shadow rays).  The fused pass also gives the
+        # shadow sort's cluster key where that is the exact one.
+        sk1 = None
+        want_skey = (shadow_sorts_at(bounce) and bounce < shadow_key_from
+                     and fused_keys)
+        if cfg.fused_broadphase and (want_skey or fold_global):
+            sk1, _, socc = _fused_keys(
+                tracer, cfg, data, bvh, shadow_o, ls.direction, do_shadow,
+                max_t=sdist, with_clusters=want_skey, any_mode=True)
+            g_occ = socc > 0 if fold_global else torch.zeros_like(do_shadow)
         elif fold_global:
             g_occ = trace_cuda.global_any_hit(shadow_o, ls.direction, sdist,
                                               do_shadow, data.tri_planes, bvh)
         else:
             g_occ = torch.zeros_like(do_shadow)
-        occluded = any_fn(shadow_o, ls.direction, sdist, do_shadow & ~g_occ)
-        visible = do_shadow & ~occluded & ~g_occ
-        accum = accum + torch.where(visible[:, None], lcolor * dcolor,
-                                    torch.zeros_like(accum))  # :371-373
+        kernel_shadow = do_shadow & ~g_occ
 
-        # Cosine-weighted diffuse bounce (reference: :384-391).
+        # Cosine-weighted diffuse bounce (reference: :384-391), before the
+        # shadow trace: the next direction feeds the pair sweep.  The next
+        # origin is the shadow origin, bit for bit.
         r_bounce = torch.stack(
             [sampling.halton(idx, sampling.bounce_dim(bounce, 3)),
              sampling.halton(idx, sampling.bounce_dim(bounce, 4))], dim=-1)
         local = sampling.sample_cosine_weighted_hemisphere(r_bounce)
-        d = sampling.align_hemisphere_with_normal(local, ns)
-        o = shadow_o
-        color = dcolor
+        d_next = sampling.align_hemisphere_with_normal(local, ns)
 
-    stats = {"closest_rays": closest_count, "shadow_rays": shadow_count}
-    return accum[:n], stats
+        pair_scid = pair_bp = None
+        if pair_at(bounce):
+            rank_next = rank_at_sort(bounce + 1)
+            res = nearest_cluster_pair(
+                shadow_o, ls.direction, sdist, kernel_shadow, d_next, alive,
+                data.clu_planes, bvh, ranks=3 if rank_next else 2,
+                return_packed=rank_next)
+            pair_scid, pair_bp = res[0], res[1:]
+
+        occluded = shadow_trace(bounce, shadow_o, ls.direction, sdist,
+                                light_idx, tri, kernel_shadow, sk1, pair_scid)
+        visible = do_shadow & ~occluded & ~g_occ
+        accum = accum + torch.where(visible[:, None], lcolor * dcolor,
+                                    torch.zeros_like(accum))  # :371-373
+        return shadow_o, d_next, dcolor, accum, alive, pair_bp
+
+    carried_bp = None
+    for bounce in range(cfg.max_bounces):
+        known_miss = rank_keys = None
+        if sorts_at(bounce):
+            (o, d, color, accum, idx, cur, alive, known_miss,
+             rank_keys) = bounce_sort(bounce, o, d, color, accum, idx, cur,
+                                      alive, carried_bp)
+        o, d, color, accum, alive, carried_bp = bounce_tail(
+            bounce, o, d, color, accum, idx, alive, known_miss, rank_keys)
+
+    if cfg.compaction and cfg.max_bounces > 1:
+        radiance = torch.empty_like(accum)
+        radiance[cur.long()] = accum  # back to pixel order
+    else:
+        radiance = accum
+    return radiance[:n], stats
 
 
 def render_sample(data: SceneData, spec: SceneSpec, cfg: RenderConfig,

@@ -6,9 +6,11 @@ and material records the renderer reads, as dataclasses of ``torch.Tensor``
 stores as arrays of structs (lights, materials) stay structs of arrays.
 
 ``RenderConfig`` carries only the fields the port implements.  A knob of the
-JAX package's config that the port lacks (``compaction``,
-``enable_specular``, ``rank_trace``, ...) is a ``TypeError`` at construction
-rather than a silent no-op; ROADMAP.md lists what is still to port.
+JAX package's config that the port lacks (``enable_specular``,
+``sort_primary``, ``live_widths``, ...) is a ``TypeError`` at construction
+rather than a silent no-op, and a value the port does not carry for a knob
+it has (a ``sort_key`` layout, a ``rank_trace`` depth) a ``ValueError``;
+ROADMAP.md lists what is still to port.
 """
 
 from __future__ import annotations
@@ -188,6 +190,7 @@ def pack_materials(materials: Sequence[Material]) -> MaterialTable:
 
 
 TRACERS = ("auto", "cuda", "torch")
+SORT_KEYS = ("cluster2", "cluster1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,9 +207,42 @@ class RenderConfig:
     closest seed and shadow occlusion in the broad-phase kernel
     (``ops.broadphase_cuda.broadphase_keys``, on ``broadphase_block``
     threads per block) instead of the two plain passes; the image is the
-    same.  The port runs the ``compaction=False`` wavefront, which gives the
-    reference's image (the reference's compaction is a pure permutation of
-    the rays)."""
+    same.
+
+    ``compaction`` permutes the rays between bounces so live rays pack
+    together (a pure permutation: the image is unchanged).  With
+    ``sort_bounces`` the bounce rays are sorted by a cluster key,
+    ``sort_key``: ``"cluster1"`` leads with the id of the nearest slab-hit
+    cluster from the exact broad phase (``ops.broadphase_cuda
+    .nearest_cluster``), then a 64-cone direction, then the origin's Morton
+    code; ``"cluster2"`` puts the second-nearest cluster's id below the
+    first.  Without ``sort_bounces`` live rays are only partitioned to the
+    front, in stable order.  ``cluster_miss_fold`` keeps rays whose nearest
+    cluster is entered beyond their global-set hit (or that overlap no
+    cluster) out of the closest kernel: they sort into one group and take
+    the host-side global hit.  ``shadow_sort`` re-sorts the shadow rays of
+    bounces >= 1 by (nearest cluster of the segment, light, origin Morton)
+    and drops segments that overlap no cluster; from bounce
+    ``shadow_hit_key_from`` on (negative counts from the last bounce) the
+    shadow key is the hit triangle's own cluster and the fold tests the
+    super boxes.  ``pair_broadphase`` computes a bounce's shadow key and
+    the next bounce's sort keys in one sweep over their shared origins
+    (``nearest_cluster_pair``).  ``rank_trace=2`` hands the sorted bounce
+    passes to the rank-directed closest kernel (``ops.rank_cuda
+    .trace_closest_rank``): each ray's two nearest candidate clusters ride
+    the sort as packed keys, the walk tests only those, a certificate
+    against the third-nearest entry decides which rays are resolved, and
+    the rest go to the hierarchical kernel seeded with the walk's best; it
+    is silently off on flat scenes and wherever the sort emits no rank keys
+    (as in the JAX package).
+
+    Every default is the JAX package's but one: ``compaction`` is False
+    here.  The sort keys come from an (rays x clusters) elementwise chain
+    that XLA fuses into one reduce and eager PyTorch runs as some forty
+    passes over temporaries of rays x clusters x 4 bytes, so the port's
+    compaction path is slower than its ``compaction=False`` path until that
+    chain is a kernel (PERF.md has the measurement, ROADMAP.md the item
+    that flips the default)."""
 
     width: int = 512
     height: int = 512
@@ -223,11 +259,25 @@ class RenderConfig:
     host_seed: bool = True
     fused_broadphase: bool = False
     broadphase_block: int = 256
+    compaction: bool = False
+    sort_bounces: bool = True
+    sort_key: str = "cluster2"
+    cluster_miss_fold: bool = True
+    shadow_sort: bool = True
+    shadow_hit_key_from: int = -1
+    pair_broadphase: bool = True
+    rank_trace: int = 0
 
     def __post_init__(self):
         if self.tracer not in TRACERS:
             raise ValueError(
                 f"tracer must be one of {TRACERS}, got {self.tracer!r}")
+        if self.sort_key not in SORT_KEYS:
+            raise ValueError(f"sort_key must be one of {SORT_KEYS} (the other "
+                             f"layouts are not ported), got {self.sort_key!r}")
+        if self.rank_trace not in (0, 2):
+            raise ValueError("rank_trace takes 0 (off) or 2 (two candidate "
+                             f"clusters a ray), got {self.rank_trace!r}")
         if self.broadphase_block % 32 or not 0 < self.broadphase_block <= 1024:
             raise ValueError(f"broadphase_block must be a multiple of 32 in "
                              f"[32, 1024], got {self.broadphase_block}")

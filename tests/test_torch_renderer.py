@@ -154,16 +154,19 @@ def test_cuda_tracer_on_cpu_device_raises():
 
 
 def test_unported_config_knobs_are_errors():
-    for knob in ("compaction", "enable_specular", "rank_trace", "env_map",
+    for knob in ("sort_primary", "enable_specular", "live_widths", "env_map",
                  "bake_primary", "chunk_skip", "visit_pairs", "telemetry"):
         with pytest.raises(TypeError):
             RenderConfig(**{knob: False})
     with pytest.raises(ValueError, match="tracer"):
         RenderConfig(tracer="pallas")
-    # every field the port carries keeps the reference's default
+    # every field the port carries keeps the reference's default, but
+    # compaction, which stays off in the port until its key chain is fused
     ref = JConfig()
     for name in RenderConfig.__dataclass_fields__:
-        assert getattr(RenderConfig(), name) == getattr(ref, name), name
+        if name != "compaction":
+            assert getattr(RenderConfig(), name) == getattr(ref, name), name
+    assert RenderConfig().compaction is False
 
 
 def test_accumulate_and_tiles():

@@ -98,3 +98,21 @@ def assert_near_ties(o, d, tri, ref_tri, live, planes) -> int:
             o[bad], d[bad], planes[:, torch.from_numpy(ref_tri[bad])].T)
         assert float(((ta - tb).abs() / tb.abs()).max()) <= NEAR_TIE_REL
     return int(bad.sum())
+
+
+def seeded_rays(n: int, seed: int, data, live: float = 0.85):
+    """(o, d, mask, max_t) torch tensors from a numpy seed: origins uniform
+    over the scene's root box grown by a quarter, unit directions, about
+    ``live`` of the rays unmasked, segment lengths up to the box's size."""
+    rng = np.random.RandomState(seed)
+    lo = data.node_lo[0].numpy()
+    hi = data.node_hi[0].numpy()
+    ext = hi - lo
+    o = rng.uniform(lo - 0.25 * ext, hi + 0.25 * ext, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mask = rng.rand(n) < live
+    max_t = rng.uniform(0.05, 1.0, (n,)) * float(np.linalg.norm(ext))
+    return (torch.from_numpy(o.astype(np.float32)),
+            torch.from_numpy(d.astype(np.float32)), torch.from_numpy(mask),
+            torch.from_numpy(max_t.astype(np.float32)))
