@@ -30,7 +30,11 @@ Phases, each of which raises (exit code != 0) on failure:
 7. the dragon main path: ``Renderer(dragon 1024x1024, RenderConfig())``,
    then with ``fused_broadphase=True``: as phase 3 for each, with the launch
    counts of K3/K4/K5; before it, each recorded pass's kernel ms beside its
-   bound;
+   bound, and K3/K4 against the plain versions that walk
+   (``closest_hier_ref``, ``any_hier_ref``) on every ray of the primary,
+   bounce-1 and bounce-2 passes, with the visits a ray makes (mean, p50,
+   p90, max), the share of visits served in groups of 1, 2-8 and 9-32 rays
+   of a warp, and the bound of the work the walk really does;
 8. a dragon cross-check at 128x128: the kernels' image against the plain
    versions';
 9. K6 (the rank-directed closest walk) against its plain version on every
@@ -40,7 +44,8 @@ Phases, each of which raises (exit code != 0) on failure:
 10. K3 with a per-ray ``seed_base`` against its plain version on the rays
     K6's certificate leaves open, and K6 + certificate + seeded K3 against
     K3 alone on the whole passes; K3 and K4 timed on the sorted rays and on
-    the same rays in random order;
+    the same rays in random order, and held against the walking plain
+    versions on every ray of the sorted and the seeded passes;
 11. the exact broad phase (``nearest_cluster``, plain PyTorch) against K5's
     two nearest keys on the same rays, and the time of each form of the
     unfused chain beside K5's;
@@ -104,6 +109,14 @@ PLANE_OPS = 39  # tri_hit(): 29 mul/add/sub, 1 div, 4 Newton/t, 5 compares
 CSRC = "metal_raytracing_tpu_torch/csrc/"
 PALLAS = "metal_raytracing_tpu/ops/trace_pallas.py"
 LIBRARY = None  # no PyTorch call computes a packed-key BVH walk
+WARP = 32
+# Kernel ms of the one-thread-per-ray K3/K4 that the warp-cooperative ones
+# replaced, on the same passes (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's: primary / bounce 1 / bounce 2 at the default config,
+# then the sorted bounce passes and K3 seeded on the uncertified rays.
+ONE_THREAD_MS = {"K3": (4.983, 10.616, 7.696), "K4": (4.351, 6.405, 4.784),
+                 "K3 sorted": (6.059, 3.800), "K4 sorted": (2.340, 1.900),
+                 "K3 seeded": (5.371, 3.140)}
 
 
 def log(msg: str) -> None:
@@ -378,6 +391,107 @@ def compare_walks(name, calls, data, spec):
             f"{amatch:.6f}")
         assert match >= MIN_MATCH and worst <= NEAR_TIE_REL, name
         assert amatch >= MIN_MATCH, name
+
+
+def visit_stats(visits, mask, rounds, ncp):
+    """Text of the visits a live ray makes and of how the warps' requests
+    group: the share of visits served in a group of 1, 2-8 or 9-32 rays
+    that asked for the same cluster in the same round."""
+    import torch
+
+    v = visits[mask].float()
+    if not v.numel():
+        return "no live rays"
+    q = torch.quantile(v, torch.tensor([0.5, 0.9], device=v.device))
+    shares = torch.zeros(3, dtype=torch.long, device=v.device)
+    for req in rounds:
+        r = (req >= 0).nonzero()[:, 0]
+        keys = torch.sort((r // WARP) * ncp + req[r]).values
+        size = torch.unique_consecutive(keys, return_counts=True)[1]
+        for i, (lo, hi) in enumerate(((1, 1), (2, 8), (9, WARP))):
+            shares[i] += size[(size >= lo) & (size <= hi)].sum()
+    total = max(int(shares.sum()), 1)
+    return (f"visits a live ray mean {float(v.mean()):.3f}, p50 "
+            f"{float(q[0]):.0f}, p90 {float(q[1]):.0f}, max "
+            f"{int(v.max())}, {len(rounds)} rounds; visits in groups of 1 / "
+            f"2-8 / 9-32 rays: " + " / ".join(
+                f"{int(x) / total:.3f}" for x in shares))
+
+
+def walk_bound(visits, n, n_live, data, spec, closest):
+    """Bound of the work the walk does for these rays: every live ray one
+    pick over the supers, every visit one pick over its super's clusters
+    and one dense test of a cluster; bytes as :func:`trace_work`."""
+    bvh = spec.bvh
+    ns, s_per = data.clu_planes.shape[0], data.clu_planes.shape[1]
+    nbytes = 4 * (bvh.num_clusters * bvh.cluster_size * 12 + ns * (1 + s_per)
+                  * 6) + n * (37 if closest else 30)
+    ops = (n_live * ns * SLAB_OPS + int(visits.sum()) * (
+        s_per * SLAB_OPS + bvh.cluster_size * PLANE_OPS))
+    return bound(nbytes, ops)
+
+
+def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
+    """K3 against the plain version that walks, on every ray."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    o, d, m, seed = args
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+    ncp = data.clu_planes.shape[0] * data.clu_planes.shape[1]
+    run = lambda: TC.trace_closest(o, d, m, *tabs, seed, seed_base=seed_base)
+    hit = run()
+    rounds = []
+    plain_ms, (t_ref, tri_ref, visits) = cuda_call(
+        lambda: TC.closest_hier_ref(o, d, m, *tabs, seed, seed_base,
+                                    rounds=rounds))
+    match, n_bad, worst = near_ties(o, d, m, hit.tri, tri_ref,
+                                    data.tri_planes)
+    both = m & (hit.tri == tri_ref) & (tri_ref >= 0)
+    err = float((hit.t - t_ref)[both].abs().max()) if bool(both.any()) else 0.0
+    dead_same = bool((hit.tri == tri_ref)[~m].all())
+    ms = cuda_ms(run, 10)
+    bnd = walk_bound(visits, o.shape[0], int(m.sum()), data, spec, True)
+    was = "" if before is None else f" (one thread per ray: {before:.3f} ms)"
+    log(f"  {name}: {int(m.sum())} live rays of {o.shape[0]}, every ray "
+        f"checked: ids equal {match:.6f}, {n_bad} near-ties (worst exact-t "
+        f"rel {worst:.3e}), max |t - t_plain| {err:.3e}; kernel {ms:.3f} "
+        f"ms{was}, walking plain {plain_ms:.3f} ms, bound of the walk's own "
+        f"work {bnd[0]:.4f} ms ({bnd[1]}); "
+        + visit_stats(visits, m, rounds, ncp))
+    assert match >= MIN_MATCH, f"{name}: ids equal on only {match:.6f}"
+    assert worst <= NEAR_TIE_REL, f"{name}: mismatch is not a near-tie"
+    assert dead_same, f"{name}: masked rays differ"
+    return {"err": err, "ms": ms, "plain_walk_ms": plain_ms, "walk_bound": bnd}
+
+
+def check_walk_any(name, args, data, spec, before=None):
+    """K4 against the plain version that walks, on every ray."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    o, d, mt, m = args
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+    ncp = data.clu_planes.shape[0] * data.clu_planes.shape[1]
+    run = lambda: TC.trace_any(o, d, mt, m, *tabs)
+    occ = run()
+    rounds = []
+    plain_ms, (ref, visits) = cuda_call(
+        lambda: TC.any_hier_ref(o, d, mt, m, *tabs, rounds=rounds))
+    n_live = int(m.sum())
+    n_bad = int(((occ != ref) & m).sum())
+    match = 1.0 - n_bad / max(n_live, 1)
+    dead_same = not bool(occ[~m].any())
+    ms = cuda_ms(run, 10)
+    bnd = walk_bound(visits, o.shape[0], n_live, data, spec, False)
+    was = "" if before is None else f" (one thread per ray: {before:.3f} ms)"
+    log(f"  {name}: {n_live} live rays of {o.shape[0]}, occluded "
+        f"{int((ref & m).sum())}, every ray checked: flags equal "
+        f"{match:.6f}; kernel {ms:.3f} ms{was}, walking plain "
+        f"{plain_ms:.3f} ms, bound of the walk's own work {bnd[0]:.4f} ms "
+        f"({bnd[1]}); " + visit_stats(visits, m, rounds, ncp))
+    assert match >= MIN_MATCH, f"{name}: flags equal on only {match:.6f}"
+    assert dead_same, f"{name}: masked rays differ"
+    return {"err": float(n_bad > 0), "ms": ms, "plain_walk_ms": plain_ms,
+            "walk_bound": bnd}
 
 
 BP_MODES = (  # (name, pass, want2, with_clusters, any_mode)
@@ -878,6 +992,17 @@ def main() -> int:
         log(f"    bounce {b}: K3 {ms:.3f} ms ({int(m.sum())} live, bound "
             f"{bnd[0]:.4f} ms, {bnd[1]}); K4 {ms2:.3f} ms ({int(m2.sum())} "
             f"live, bound {bnd2[0]:.4f} ms, {bnd2[1]})")
+    log("  K3/K4 vs the walking plain versions (every ray):")
+    walked = {"K3": [], "K4": []}
+    for b in range(len(calls["closest"])):
+        walked["K3"].append(check_walk_closest(
+            f"K3 closest bounce {b}", calls["closest"][b], dragon.data,
+            dragon.spec, before=ONE_THREAD_MS["K3"][b]))
+        walked["K4"].append(check_walk_any(
+            f"K4 any bounce {b}", calls["any"][b], dragon.data, dragon.spec,
+            before=ONE_THREAD_MS["K4"][b]))
+        res["K3"].append(walked["K3"][-1])
+        res["K4"].append(walked["K4"][-1])
     del calls, dragon
     torch.cuda.empty_cache()
 
@@ -933,6 +1058,22 @@ def main() -> int:
             RK.trace_closest_rank(o, d, m, [k1, k2], tabs[2], tabs[3], seed),
             (o, d, seed, calls["rank"][b - 1][3][0],
              calls["rank"][b - 1][3][1], m))
+    log("  K3 / K4 vs the walking plain versions on the sorted and the "
+        "seeded passes (every ray):")
+    for b, ((o, d, m, _, seed), wk) in enumerate(zip(calls["rank"], walks),
+                                                 start=1):
+        res["K3"].append(check_walk_closest(
+            f"K3 sorted bounce {b}", (o, d, m, seed), sl.data, sl.spec,
+            before=ONE_THREAD_MS["K3 sorted"][b - 1]))
+        res["K3"].append(check_walk_closest(
+            f"K3 seeded bounce {b}", (o, d, wk["unresolved"], wk["key"]),
+            sl.data, sl.spec, seed_base=wk["base"],
+            before=ONE_THREAD_MS["K3 seeded"][b - 1]))
+        o2, d2, mt, m2 = calls["any"][b]
+        res["K4"].append(check_walk_any(
+            f"K4 sorted bounce {b}", (o2.contiguous(), d2.contiguous(), mt,
+                                      m2), sl.data, sl.spec,
+            before=ONE_THREAD_MS["K4 sorted"][b - 1]))
     for b in (1, 2):
         o2, d2, mt, m2 = calls["any"][b]
         sorted_against_shuffled(
@@ -978,6 +1119,9 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
             "bound_by": first["bound"][1], "library_ms": LIBRARY})
+        if key in walked:  # the walking plain version on the same pass
+            kernels[-1]["plain_walk_ms"] = walked[key][0]["plain_walk_ms"]
+            kernels[-1]["walk_bound_ms"] = walked[key][0]["walk_bound"][0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

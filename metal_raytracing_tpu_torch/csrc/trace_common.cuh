@@ -73,27 +73,40 @@ __device__ __forceinline__ bool slab(const float* box, const Ray& ray,
   return (tn <= tf) && (tf >= 0.0f) && (tn <= t_max) && (hix >= lox);
 }
 
-// Baldwin-Weber test of triangle slot j against the (12, T) plane rows
-// (trace_pallas._mt_block).  Returns the hit distance in *t_out.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tri, int T,
-                                        int j, const Ray& ray, float* t_out) {
-  float nx = __ldg(tri + 0 * T + j), ny = __ldg(tri + 1 * T + j);
-  float nz = __ldg(tri + 2 * T + j), dc = __ldg(tri + 3 * T + j);
-  float ux = __ldg(tri + 4 * T + j), uy = __ldg(tri + 5 * T + j);
-  float uz = __ldg(tri + 6 * T + j), uw = __ldg(tri + 7 * T + j);
-  float vx = __ldg(tri + 8 * T + j), vy = __ldg(tri + 9 * T + j);
-  float vz = __ldg(tri + 10 * T + j), vw = __ldg(tri + 11 * T + j);
-  float den = nx * ray.dx + ny * ray.dy + nz * ray.dz;
+// Baldwin-Weber test of one triangle's twelve plane values p = [n(3), n.v0,
+// U(3), uw, V(3), vw] against a ray (trace_pallas._mt_block).  Returns the
+// hit distance in *t_out.
+__device__ __forceinline__ bool plane_hit(const float (&p)[12], float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float* t_out) {
+  float den = p[0] * dx + p[1] * dy + p[2] * dz;
   float rcp = 1.0f / den;
   rcp = rcp * (2.0f - den * rcp);
-  float t = (dc - (nx * ray.ox + ny * ray.oy + nz * ray.oz)) * rcp;
-  float px = ray.ox + t * ray.dx;
-  float py = ray.oy + t * ray.dy;
-  float pz = ray.oz + t * ray.dz;
-  float u = ux * px + uy * py + uz * pz + uw;
-  float v = vx * px + vy * py + vz * pz + vw;
+  float t = (p[3] - (p[0] * ox + p[1] * oy + p[2] * oz)) * rcp;
+  float px = ox + t * dx;
+  float py = oy + t * dy;
+  float pz = oz + t * dz;
+  float u = p[4] * px + p[5] * py + p[6] * pz + p[7];
+  float v = p[8] * px + p[9] * py + p[10] * pz + p[11];
   *t_out = t;
   return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 1e-6f);
+}
+
+// The plane values of triangle slot j of the (12, T) plane rows, or zeros
+// when !valid: a zero triangle has den = 0, so it is never hit.
+__device__ __forceinline__ void load_planes(const float* __restrict__ tri,
+                                            int T, int j, bool valid,
+                                            float (&p)[12]) {
+#pragma unroll
+  for (int k = 0; k < 12; ++k) p[k] = valid ? __ldg(tri + k * T + j) : 0.0f;
+}
+
+// Baldwin-Weber test of triangle slot j against the (12, T) plane rows.
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ tri, int T,
+                                        int j, const Ray& ray, float* t_out) {
+  float p[12];
+  load_planes(tri, T, j, true, p);
+  return plane_hit(p, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t_out);
 }
 
 // Minimum packed key (bits(t) & ~0x1FF) | j over slots [base, base + count)

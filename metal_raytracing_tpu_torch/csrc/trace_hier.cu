@@ -1,5 +1,6 @@
 // Hierarchical cluster traversal for Hopper (sm_90a): closest hit and any
-// hit over a two-level tree of <= 128 supers of S <= 32 clusters each.
+// hit over a two-level tree of <= 128 supers of S <= 32 clusters each, with
+// a leaf test that the 32 lanes of a warp share.
 //
 // closest_hier_kernel replaces the TPU kernel _closest_kernel and
 // any_hier_kernel replaces _any_kernel
@@ -7,27 +8,75 @@
 // scenes with more than 128 padded clusters, launched through
 // _pallas_trace).  The TPU kernels walk a block of 128-512 rays over the
 // union of their supers, then of each super's clusters, by extract-min over
-// (boxes x rays) score tiles.  Here every ray walks alone, one thread per
-// ray, as the flat kernels of trace_flat.cu do, with a second level:
+// (boxes x rays) score tiles, and dense-test every popped cluster against
+// the whole block.
 //
-//   take the nearest unvisited super whose slab entry is below the running
-//   best; inside it take the nearest unvisited cluster whose entry is below
-//   the best, dense-test its cluster_size slots, repeat until the super's
-//   clusters drain; mark the super visited (it is never re-entered) and
-//   pick again.
+// What bounds the walk on an H100.  A ray dense-tests few clusters (dragon
+// 1024x1024: under one a ray on average, up to 15 for a grazing ray), but
+// a cluster is 384 slots of ~55 instructions each (IEEE reciprocal, no
+// fused multiply-add) over twelve plane rows of stride T.  With one thread
+// per ray a warp runs as long as its slowest lane, 31 lanes waiting, and
+// each of a lane's 4,608 plane loads a visit touches its own 32-byte sector
+// when the lanes stand in different clusters.  The planes stay in the 50 MB
+// L2 (dragon: 6.3 MB), so the limits are the instructions and loads a warp
+// can start a cycle and the spread of visits inside a warp, not HBM bytes.
 //
-// Super visits live in a 128-bit mask and cluster visits of the current
-// super in a 32-bit mask, both in registers.  The super boxes and all
-// cluster boxes sit in shared memory (dragon: 43 x 24 B plus 344 x 24 B,
-// 9.3 KB; at most 128 x 24 B plus 4096 x 24 B).
+// What the design does about it.
 //
-// What bounds these kernels on an H100: as for the flat kernels, divergent
-// per-ray loops and the triangle-plane reads (dragon's planes are 6.3 MB,
-// L2-resident in the 50 MB L2), not HBM.  The second level cuts the boxes a
-// ray slab-tests from every cluster to the supers plus the clusters of the
-// supers it enters.  Options of the TPU kernels that the default config
-// leaves off (baked origins, the partial-cluster chunk skip, pair visits,
-// visit counts) are not here.
+//   * Each lane keeps its own ray and its own two-level walk in registers:
+//     the nearest unvisited super whose slab entry is strictly below the
+//     chopped best, inside it the nearest unvisited cluster below the best,
+//     until the super's clusters drain (a super is never re-entered); super
+//     visits in a 128-bit mask, cluster visits of the current super in a
+//     32-bit mask.  So every ray visits exactly the clusters the
+//     one-thread-per-ray walk visits for it.
+//   * The warp serves the lanes' cluster requests together.  In each round
+//     every walking lane advances to its next cluster; lanes that asked for
+//     the same cluster form a group (ballot on the leader's request).  For
+//     one group the warp walks the cluster in steps of 64 slots: lane l
+//     holds slots 64c + l and 64c + 32 + l (twenty-four coalesced 128-byte
+//     row reads), and for each ray of the group (read from shared memory as
+//     a broadcast) every lane tests its two slots; the minimum key goes
+//     back to the owner by __reduce_min_sync (hit keys are positive ints),
+//     an occluder by __any_sync.  A visit costs the warp cluster_size / 64
+//     steps for each ray of the group, whatever the other lanes do: a
+//     warp's time is the sum of its lanes' visits over 32, not their
+//     maximum, and the plane loads a visit fall from 4,608 scattered to 144
+//     coalesced a lane, shared by the group.  (One slot a lane with the
+//     next chunk prefetched was 10-18% slower, three or four slots a lane
+//     cost registers: PERF.md.)
+//   * The box picks are shared too when few lanes still walk.  A lane's own
+//     pick slab-tests every super (dragon: 43) or its super's clusters (8)
+//     in a divergent loop, and a round waits for the slowest lane's picks;
+//     with at most kCoopMax walking lanes the warp serves them one after
+//     another instead, lane l testing boxes l, l + 32, ... of the picking
+//     ray and the nearest going back by two __reduce_min_sync (entry bits,
+//     then the lowest index among equals: the same tie rule).  Measured on
+//     dragon 1024x1024, 16 beat 2, 4, 8 and 32 on the sum of the main
+//     path's passes (PERF.md).
+//   * All lanes stay to the end: out-of-range and masked lanes request
+//     nothing but take part in every warp-wide step, and the loops end on
+//     warp-uniform conditions.  Every loop that diverges between lanes has
+//     one exit, and a lane's walk state changes only at the top of a round,
+//     so that all lanes reach the same vote instruction.
+//   * The minimum of packed keys and the OR of occlusion do not depend on
+//     the order of the slots, and a cluster's key still replaces the best
+//     only when strictly smaller, so the results are those of the
+//     one-thread-per-ray walk and of the plain versions, bit for bit.
+//
+// Tensor cores (wgmma) do not apply: the plane test is dot products of
+// depth 3 in float32 whose 512-ulp packed key decides ties, and TF32 inputs
+// would move those keys.  Staging a cluster's twelve rows in shared memory
+// with cp.async.bulk and an mbarrier, two buffers a warp, was built and
+// measured: bit-equal and 1.4-3.4x slower on every pass, since 36.9 KB a
+// warp leaves four warps an SM where the register version keeps 32, whose
+// loads the other warps' plane tests cover (PERF.md); it is not here.
+//
+// The super boxes and all cluster boxes sit in shared memory (dragon: 43 x
+// 24 B plus 344 x 24 B, 9.3 KB; at most 128 x 24 B plus 4096 x 24 B) beside
+// the block's rays (48 B a thread).  Options of the TPU kernels that the
+// default config leaves off (baked origins, the partial-cluster chunk skip,
+// pair visits, visit counts) are not here.
 //
 // Numerics and the packed key: see trace_common.cuh.
 
@@ -40,6 +89,195 @@ using namespace mrt;
 constexpr int kThreads = 128;
 constexpr int kMaxSupers = 128;
 constexpr int kMaxPerSuper = 32;
+constexpr unsigned kFull = 0xffffffffu;
+// The warp shares the box picks when at most this many lanes still walk.
+constexpr int kCoopMax = 16;
+constexpr int kInfBits = 0x7f800000;  // float bits of +inf: no box
+
+// A block's rays in shared memory, three float4 a thread: (ox, oy, oz, dx),
+// (dy, dz, max_t, 0) and the slab test's (1/dx, 1/dy, 1/dz, 0).  A warp
+// reads one ray as a broadcast.
+__device__ __forceinline__ void store_ray(float4* s_ray, const Ray& ray,
+                                          float t_max) {
+  s_ray[3 * threadIdx.x] = make_float4(ray.ox, ray.oy, ray.oz, ray.dx);
+  s_ray[3 * threadIdx.x + 1] = make_float4(ray.dy, ray.dz, t_max, 0.0f);
+  s_ray[3 * threadIdx.x + 2] = make_float4(ray.ix, ray.iy, ray.iz, 0.0f);
+  __syncwarp();
+}
+
+// One step of a lane's two-level walk: the next cluster to dense-test, or
+// -1 when the walk has ended (`walking` cleared).  `s` is the lane's
+// current super (-1: none), `svis` / `cvis` its visited masks.  The loop
+// diverges between lanes and the warp votes right after it, so it has one
+// exit and no return inside: every lane must reach the same vote
+// instruction, and a loop with several exits let the compiler send lanes to
+// different copies of it (seen on the card as missed occluders).
+__device__ __forceinline__ int next_cluster(const float* s_sup,
+                                            const float* s_clu, int n_sup,
+                                            int s_per, const Ray& ray,
+                                            float t_max, float bound, int& s,
+                                            unsigned (&svis)[4],
+                                            unsigned (&cvis)[1],
+                                            bool& walking) {
+  int req = -1;
+  while (walking && req < 0) {
+    if (s < 0) {
+      s = pick_box(s_sup, n_sup, ray, t_max, bound, svis);
+      if (s < 0) {
+        walking = false;
+      } else {
+        mark(svis, s);
+        cvis[0] = 0u;
+      }
+    }
+    if (s >= 0) {
+      int k = pick_box(s_clu + 6 * s * s_per, s_per, ray, t_max, bound, cvis);
+      if (k >= 0) {
+        mark(cvis, k);
+        req = s * s_per + k;
+      } else {
+        s = -1;  // the super's clusters are drained
+      }
+    }
+  }
+  __syncwarp();
+  return req;
+}
+
+// pick_box shared by the warp, for the ray of lane m (read from shared
+// memory): lane l slab-tests boxes l, l + 32, ... against `vis`, lane m's
+// visited mask.  Entries are >= 0, so their float bits order like their
+// values; + 0.0f turns a -0 into +0 so that equal entries have equal bits.
+// Returns the same index to all lanes.  Called by all 32 lanes.
+__device__ __forceinline__ int coop_pick(const float* boxes, int count,
+                                         const float4* rays, int m,
+                                         float t_max, float bound,
+                                         const unsigned (&vis)[4], int lane) {
+  float4 a = rays[3 * m], b = rays[3 * m + 1], iv = rays[3 * m + 2];
+  Ray ray = {a.x, a.y, a.z, a.w, b.x, b.y, iv.x, iv.y, iv.z};
+  int best_bits = kInfBits, best_idx = 0x7fffffff;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    int k = 32 * w + lane;
+    if (32 * w < count) {
+      float tn = 0.0f;
+      bool ok = k < count && !((vis[w] >> lane) & 1u) &&
+                slab(boxes + 6 * k, ray, t_max, &tn) && tn < bound;
+      int bits = ok ? __float_as_int(tn + 0.0f) : kInfBits;
+      if (bits < best_bits) {
+        best_bits = bits;
+        best_idx = k;
+      }
+    }
+  }
+  int mn = __reduce_min_sync(kFull, best_bits);
+  int idx = __reduce_min_sync(kFull, best_bits == mn ? best_idx : 0x7fffffff);
+  return mn == kInfBits ? -1 : idx;
+}
+
+// next_cluster for the whole warp, one picking lane after another: lane m's
+// walk state comes by shuffle, its pick by coop_pick, and only lane m
+// updates its state.  Ends when no walking lane is without a request.
+// Called by all 32 lanes.
+__device__ __forceinline__ int next_cluster_coop(
+    const float* s_sup, const float* s_clu, int n_sup, int s_per,
+    const float4* rays, float my_tmax, float my_bound, int& s,
+    unsigned (&svis)[4], unsigned (&cvis)[1], bool& walking, int lane) {
+  int req = -1;
+  while (true) {
+    unsigned need = __ballot_sync(kFull, walking && req < 0);
+    if (!need) break;
+    int m = __ffs(need) - 1;
+    int sm = __shfl_sync(kFull, s, m);
+    float tm = __shfl_sync(kFull, my_tmax, m);
+    float bd = __shfl_sync(kFull, my_bound, m);
+    unsigned v[4] = {0u, 0u, 0u, 0u};
+    if (sm < 0) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) v[w] = __shfl_sync(kFull, svis[w], m);
+      int pick = coop_pick(s_sup, n_sup, rays, m, tm, bd, v, lane);
+      if (lane == m) {
+        if (pick < 0) {
+          walking = false;
+        } else {
+          s = pick;
+          mark(svis, pick);
+          cvis[0] = 0u;
+        }
+      }
+    } else {
+      v[0] = __shfl_sync(kFull, cvis[0], m);
+      int pick = coop_pick(s_clu + 6 * sm * s_per, s_per, rays, m, tm, bd, v,
+                           lane);
+      if (lane == m) {
+        if (pick >= 0) {
+          mark(cvis, pick);
+          req = sm * s_per + pick;
+        } else {
+          s = -1;
+        }
+      }
+    }
+  }
+  return req;
+}
+
+// The warp's shared leaf test for closest hits: slots [base, base + count)
+// against the ray of every lane in `group`.  Returns, to each lane of the
+// group, its ray's minimum packed key (bits(t) & ~0x1FF) | j over the
+// slots, init_key() when none is hit.  A step is 64 slots, two a lane: the
+// two plane tests of a ray are independent, which hides their latency in a
+// warp that walks alone.  Called by all 32 lanes.
+__device__ __forceinline__ int serve_closest(const float* __restrict__ tri,
+                                             int T, int base, int count,
+                                             unsigned group,
+                                             const float4* rays, int lane) {
+  int vkey = init_key();
+  for (int j0 = 0; j0 < count; j0 += 64) {
+    float p[12], q[12];
+    int ja = j0 + lane, jb = ja + 32;
+    load_planes(tri, T, base + ja, ja < count, p);
+    load_planes(tri, T, base + jb, jb < count, q);
+    for (unsigned g = group; g; g &= g - 1) {
+      int m = __ffs(g) - 1;
+      float4 a = rays[3 * m], b = rays[3 * m + 1];
+      float ta, tb;
+      bool ha = plane_hit(p, a.x, a.y, a.z, a.w, b.x, b.y, &ta);
+      bool hb = plane_hit(q, a.x, a.y, a.z, a.w, b.x, b.y, &tb);
+      int ka = ha ? ((__float_as_int(ta) & ~kIdxMask) | ja) : init_key();
+      int kb = hb ? ((__float_as_int(tb) & ~kIdxMask) | jb) : init_key();
+      int k = __reduce_min_sync(kFull, min(ka, kb));
+      if (lane == m) vkey = min(vkey, k);
+    }
+  }
+  return vkey;
+}
+
+// The warp's shared leaf test for occlusion: the lanes of `group` whose ray
+// hits a slot of [base, base + count) within (1e-6, max_t].  A ray leaves
+// at the first step with an occluder.  Called by all 32 lanes.
+__device__ __forceinline__ unsigned serve_any(const float* __restrict__ tri,
+                                              int T, int base, int count,
+                                              unsigned group,
+                                              const float4* rays, int lane) {
+  unsigned occluded = 0u;
+  for (int j0 = 0; j0 < count && group; j0 += 64) {
+    float p[12], q[12];
+    int ja = j0 + lane, jb = ja + 32;
+    load_planes(tri, T, base + ja, ja < count, p);
+    load_planes(tri, T, base + jb, jb < count, q);
+    for (unsigned g = group; g; g &= g - 1) {
+      int m = __ffs(g) - 1;
+      float4 a = rays[3 * m], b = rays[3 * m + 1];
+      float ta, tb;
+      bool ha = plane_hit(p, a.x, a.y, a.z, a.w, b.x, b.y, &ta) && ta <= b.z;
+      bool hb = plane_hit(q, a.x, a.y, a.z, a.w, b.x, b.y, &tb) && tb <= b.z;
+      if (__any_sync(kFull, ha || hb)) occluded |= 1u << m;
+    }
+    group &= ~occluded;
+  }
+  return occluded;
+}
 
 // Closest hit (replaces _closest_kernel, trace_pallas.py:1139).  Starts
 // from the host seed key (the global set's best hit) with base g_base, or
@@ -57,46 +295,60 @@ closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tri, int n, int n_sup,
                     int s_per, int c_size, int T, int g_base,
                     float* __restrict__ t_out, int* __restrict__ tri_out) {
-  extern __shared__ float s_mem[];
-  float* s_sup = s_mem;
-  float* s_clu = s_mem + n_sup * 6;
+  extern __shared__ float4 s_mem[];
+  float4* s_ray = s_mem;
+  float* s_sup = (float*)(s_mem + 3 * kThreads);
+  float* s_clu = s_sup + n_sup * 6;
   load_shared(sup, n_sup * 6, s_sup);
   load_shared(clu, n_sup * s_per * 6, s_clu);
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+  const int lane = threadIdx.x & 31;
+  const float4* rays = s_ray + 3 * (threadIdx.x - lane);  // this warp's
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool inside = r < n;
 
-  int key = seed ? seed[r] : init_key();
-  int base = seed_base ? seed_base[r] : g_base;
-  if (mask[r]) {
-    Ray ray = load_ray(o, d, r);
-    unsigned svis[4] = {0u, 0u, 0u, 0u};
-    while (true) {
-      int s = pick_box(s_sup, n_sup, ray, kBigT, key_to_t(key), svis);
-      if (s < 0) break;
-      mark(svis, s);
-      const float* boxes = s_clu + 6 * s * s_per;
-      unsigned cvis[1] = {0u};
-      while (true) {
-        int k = pick_box(boxes, s_per, ray, kBigT, key_to_t(key), cvis);
-        if (k < 0) break;
-        mark(cvis, k);
-        int cbase = (s * s_per + k) * c_size;
-        int vkey = dense_closest(tri, T, cbase, c_size, ray);
-        if (vkey < key) {
-          key = vkey;
-          base = cbase;
-        }
+  int key = inside && seed ? seed[r] : init_key();
+  int base = inside && seed_base ? seed_base[r] : g_base;
+  bool walking = inside && mask[r];
+  Ray ray = {};
+  if (walking) ray = load_ray(o, d, r);
+  store_ray(s_ray, ray, kBigT);
+  unsigned svis[4] = {0u, 0u, 0u, 0u};
+  unsigned cvis[1] = {0u};
+  int s = -1;
+  while (true) {
+    // every walking lane advances to its next cluster, then the warp serves
+    // the requests group by group, lowest requesting lane first
+    int req = __popc(__ballot_sync(kFull, walking)) <= kCoopMax
+                  ? next_cluster_coop(s_sup, s_clu, n_sup, s_per, rays, kBigT,
+                                      key_to_t(key), s, svis, cvis, walking,
+                                      lane)
+                  : next_cluster(s_sup, s_clu, n_sup, s_per, ray, kBigT,
+                                 key_to_t(key), s, svis, cvis, walking);
+    unsigned pending = __ballot_sync(kFull, req >= 0);
+    if (!pending) break;
+    while (pending) {
+      int c = __shfl_sync(kFull, req, __ffs(pending) - 1);
+      unsigned group = __ballot_sync(kFull, req == c);
+      pending &= ~group;
+      int cbase = c * c_size;
+      int vkey = serve_closest(tri, T, cbase, c_size, group, rays, lane);
+      if (req == c && vkey < key) {
+        key = vkey;
+        base = cbase;
       }
     }
   }
-  t_out[r] = key_to_t(key);
-  tri_out[r] = key < miss_key() ? base + (key & kIdxMask) : -1;
+  if (inside) {
+    t_out[r] = key_to_t(key);
+    tri_out[r] = key < miss_key() ? base + (key & kIdxMask) : -1;
+  }
 }
 
-// Any hit (replaces _any_kernel, trace_pallas.py:1653).  One thread per ray
-// segment (1e-6, max_t]: the global slots first, as the TPU kernel does
-// under seed_global=False, then the two-level walk in entry order with the
-// max_t slab bound, stopping at the first occluder.
+// Any hit (replaces _any_kernel, trace_pallas.py:1653) over the ray segment
+// (1e-6, max_t]: the global slots first, as the TPU kernel does under
+// seed_global=False, through the shared leaf test as one group of every
+// live lane; then the two-level walk in entry order with the max_t slab
+// bound, each ray leaving at its first occluder.
 __global__ void __launch_bounds__(kThreads)
 any_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ max_t,
@@ -105,39 +357,55 @@ any_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ tri, int n, int n_sup, int s_per,
                 int c_size, int T, int g_base, int g_slots,
                 bool* __restrict__ occ_out) {
-  extern __shared__ float s_mem[];
-  float* s_sup = s_mem;
-  float* s_clu = s_mem + n_sup * 6;
+  extern __shared__ float4 s_mem[];
+  float4* s_ray = s_mem;
+  float* s_sup = (float*)(s_mem + 3 * kThreads);
+  float* s_clu = s_sup + n_sup * 6;
   load_shared(sup, n_sup * 6, s_sup);
   load_shared(clu, n_sup * s_per * 6, s_clu);
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+  const int lane = threadIdx.x & 31;
+  const float4* rays = s_ray + 3 * (threadIdx.x - lane);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool inside = r < n;
 
-  bool occ = false;
-  if (mask[r]) {
-    Ray ray = load_ray(o, d, r);
-    float tmax = max_t[r];
-    occ = dense_any(tri, T, g_base, g_slots, ray, tmax);
-    unsigned svis[4] = {0u, 0u, 0u, 0u};
-    while (!occ) {
-      int s = pick_box(s_sup, n_sup, ray, tmax, kBigT, svis);
-      if (s < 0) break;
-      mark(svis, s);
-      const float* boxes = s_clu + 6 * s * s_per;
-      unsigned cvis[1] = {0u};
-      while (!occ) {
-        int k = pick_box(boxes, s_per, ray, tmax, kBigT, cvis);
-        if (k < 0) break;
-        mark(cvis, k);
-        occ = dense_any(tri, T, (s * s_per + k) * c_size, c_size, ray, tmax);
-      }
+  const bool live = inside && mask[r];
+  Ray ray = {};
+  float tmax = 0.0f;
+  if (live) {
+    ray = load_ray(o, d, r);
+    tmax = max_t[r];
+  }
+  store_ray(s_ray, ray, tmax);
+  unsigned hit_by = serve_any(tri, T, g_base, g_slots,
+                              __ballot_sync(kFull, live), rays, lane);
+  bool occ = (hit_by >> lane) & 1u;
+  bool walking = live && !occ;
+  unsigned svis[4] = {0u, 0u, 0u, 0u};
+  unsigned cvis[1] = {0u};
+  int s = -1;
+  while (true) {
+    walking = walking && !occ;  // an occluded ray has left the walk
+    int req = __popc(__ballot_sync(kFull, walking)) <= kCoopMax
+                  ? next_cluster_coop(s_sup, s_clu, n_sup, s_per, rays, tmax,
+                                      kBigT, s, svis, cvis, walking, lane)
+                  : next_cluster(s_sup, s_clu, n_sup, s_per, ray, tmax, kBigT,
+                                 s, svis, cvis, walking);
+    unsigned pending = __ballot_sync(kFull, req >= 0);
+    if (!pending) break;
+    while (pending) {
+      int c = __shfl_sync(kFull, req, __ffs(pending) - 1);
+      unsigned group = __ballot_sync(kFull, req == c);
+      pending &= ~group;
+      hit_by = serve_any(tri, T, c * c_size, c_size, group, rays, lane);
+      occ = occ || ((hit_by >> lane) & 1u);
     }
   }
-  occ_out[r] = occ;
+  if (inside) occ_out[r] = occ;
 }
 
 size_t shared_bytes(int n_sup, int s_per) {
-  return sizeof(float) * 6 * (size_t)n_sup * (1 + s_per);
+  return sizeof(float4) * 3 * kThreads +
+         sizeof(float) * 6 * (size_t)n_sup * (1 + s_per);
 }
 
 bool bad_layout(int n_sup, int s_per) {

@@ -59,12 +59,15 @@ def _safe_inv(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def slab_entry(o, d, boxes, t_max=None):
-    """Slab test of rays (n, 3) against boxes (B, 6) ``[lo(3), hi(3)]`` in
+    """Slab test of rays (n, 3) against boxes (B, 6) ``[lo(3), hi(3)]``
+    shared by all rays, or (n, B, 6) gathered per ray, in
     ``trace_pallas._slab_cols``' op order: ``(max(t_entry, 0) (n, B), hit
     (n, B))``; inverted padding boxes never hit.  ``t_max`` (n,) bounds the
     entry, else BIG_T does."""
     inv = _safe_inv(d)
-    lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
+    if boxes.dim() == 2:
+        boxes = boxes[None]
+    lo, hi = boxes[..., 0:3], boxes[..., 3:6]
     t0 = (lo - o[:, None, :]) * inv[:, None, :]
     t1 = (hi - o[:, None, :]) * inv[:, None, :]
     lo_t, hi_t = torch.minimum(t0, t1), torch.maximum(t0, t1)
@@ -72,7 +75,7 @@ def slab_entry(o, d, boxes, t_max=None):
     tf = torch.minimum(torch.minimum(hi_t[..., 0], hi_t[..., 1]), hi_t[..., 2])
     bound = BIG_T if t_max is None else t_max[:, None]
     hit = ((tn <= tf) & (tf >= 0.0) & (tn <= bound)
-           & (boxes[None, :, 3] >= boxes[None, :, 0]))
+           & (boxes[..., 3] >= boxes[..., 0]))
     return torch.clamp(tn, min=0.0), hit
 
 

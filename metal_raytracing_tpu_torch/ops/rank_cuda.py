@@ -33,14 +33,10 @@ import torch
 from ..accel import BVHSpec
 from .broadphase_cuda import NC_IDM, NC_SENT
 from .trace_cuda import (IDX_BITS, IDX_MASK, N_TRI_PLANES, _INIT_KEY,
-                         _check_rays, _check_tables, _key_to_t, _plane_hits,
-                         _ptr, _raise_on, _stream)
+                         _REF_GATHER_ELEMS, _check_rays, _check_tables,
+                         _key_to_t, _plane_hits, _ptr, _raise_on, _stream)
 
 __all__ = ["trace_closest_rank", "closest_rank_ref", "rank_certificate"]
-
-# Elements of one gathered (12, rays, cluster_size) plane block of the plain
-# version: 64 MB of float32.
-_REF_GATHER_ELEMS = 1 << 24
 
 
 def _entry_t(pk: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,15 @@ padded clusters, or as ``flat=`` says):
 - :func:`trace_any` launches ``any_flat_kernel`` (``_any_flat_kernel``) or
   ``any_hier_kernel`` (``_any_kernel``).
 
-Each wrapper runs its plain PyTorch version (:func:`closest_flat_ref`,
-:func:`any_flat_ref`, which compute the function of both walks) for tensors
-on the CPU, and launches a kernel for tensors on a CUDA device, where it
-never falls back.  Each keeps plain integer launch counts that grow by one
+The flat kernels walk one thread per ray; the hierarchical ones keep a walk
+per lane and share each cluster's leaf test among the 32 lanes of a warp
+(``csrc/trace_hier.cu``).  Each wrapper runs its plain PyTorch version
+(:func:`closest_flat_ref`, :func:`any_flat_ref`, which compute the function
+of both walks by brute force) for tensors on the CPU, and launches a kernel
+for tensors on a CUDA device, where it never falls back.
+:func:`closest_hier_ref` and :func:`any_hier_ref` are plain versions that
+walk as the hierarchical kernels do and count each ray's cluster visits;
+tests and ``chip_smoke.py`` hold the kernels against them on every ray.  Each keeps plain integer launch counts that grow by one
 per kernel launch: ``trace_closest.launches`` and ``trace_any.launches``
 (flat), ``trace_closest.launches_hier`` and ``trace_any.launches_hier``.
 
@@ -43,6 +48,7 @@ from .intersect import BIG_T, Hit
 
 __all__ = ["pack_triangle_planes", "pack_scene_planes", "super_layout",
            "trace_closest", "trace_any", "closest_flat_ref", "any_flat_ref",
+           "closest_hier_ref", "any_hier_ref",
            "global_seed_keys", "global_any_hit", "recompute_tuv",
            "reset_launch_counts", "IDX_BITS", "IDX_MASK"]
 
@@ -60,6 +66,9 @@ _INIT_KEY = _MISS_KEY | IDX_MASK
 # Elements per (rays x triangles) temporary in the plain versions: 16 MB of
 # float32, so a full-frame call stays small on the card and on the host.
 _REF_CHUNK_ELEMS = 1 << 22
+# Elements of one gathered (12, rays, cluster_size) plane block of the
+# walking plain versions and of the rank walk's: 64 MB of float32.
+_REF_GATHER_ELEMS = 1 << 24
 
 
 def _key_to_t(key: torch.Tensor) -> torch.Tensor:
@@ -303,6 +312,172 @@ def any_flat_ref(o, d, max_t, mask, tri, spec: BVHSpec):
     return occ
 
 
+def _pick(o, d, boxes, t_max, bound, visited):
+    """``pick_box`` of ``csrc/trace_common.cuh`` for every ray at once: the
+    index (n,) of the nearest box of ``boxes`` ((B, 6) shared, or (n, B, 6)
+    per ray) that is not ``visited`` (n, B), is slab-hit within ``t_max``
+    and enters strictly below ``bound`` (n,); -1 where there is none.  Ties
+    go to the lower index (``torch.min`` returns the first minimum)."""
+    from .broadphase_cuda import slab_entry
+
+    tn, hit = slab_entry(o, d, boxes, t_max)
+    ok = hit & ~visited & (tn < bound[:, None])
+    best, idx = torch.where(ok, tn, torch.inf).min(dim=1)
+    return torch.where(best < torch.inf, idx, -1)
+
+
+def _next_requests(o, d, t_max, bound, sup, clu, cur, svis, cvis):
+    """One step of every ray's two-level walk, as the kernels take it: the
+    nearest unvisited cluster of the ray's current super ``cur`` (-1: none
+    yet), else the nearest unvisited super and then its nearest cluster,
+    until the ray has a cluster or its supers are drained.  Updates ``cur``,
+    ``svis`` (n, NS) and ``cvis`` (n, S) in place and returns the requested
+    cluster id (n,), -1 for a ray whose walk has ended."""
+    s_per = clu.shape[1]
+    req = torch.full_like(cur, -1)
+    todo = torch.ones_like(cur, dtype=torch.bool)
+    tm = (lambda r: None) if t_max is None else (lambda r: t_max[r])
+    while bool(todo.any()):
+        r = (todo & (cur < 0)).nonzero()[:, 0]
+        if r.numel():
+            s = _pick(o[r], d[r], sup, tm(r), bound[r], svis[r])
+            got = s >= 0
+            todo[r[~got]] = False
+            r, s = r[got], s[got]
+            svis[r, s] = True  # a super is never re-entered
+            cur[r] = s
+            cvis[r] = False
+        r = (todo & (cur >= 0)).nonzero()[:, 0]
+        if r.numel():
+            k = _pick(o[r], d[r], clu[cur[r]], tm(r), bound[r], cvis[r])
+            got = k >= 0
+            cur[r[~got]] = -1  # the super's clusters are drained
+            r, k = r[got], k[got]
+            cvis[r, k] = True
+            req[r] = cur[r] * s_per + k
+            todo[r] = False
+    return req
+
+
+def _cluster_hits(o, d, tri, cbase, c: int):
+    """(t, hit) (n, c) of each ray against the ``c`` slots of its own
+    cluster, from slot ``cbase`` (n,) on."""
+    lane = torch.arange(c, device=o.device)
+    return _plane_hits(o, d, tri[:, cbase[:, None].long() + lane[None, :]])
+
+
+def _walk_state(mask, sup, clu):
+    """The walking rays' indices and their fresh (cur, svis, cvis)."""
+    live = mask.nonzero()[:, 0]
+    k, dev = live.shape[0], mask.device
+    return (live, torch.full((k,), -1, dtype=torch.long, device=dev),
+            torch.zeros((k, sup.shape[0]), dtype=torch.bool, device=dev),
+            torch.zeros((k, clu.shape[1]), dtype=torch.bool, device=dev))
+
+
+def _note_round(rounds, n, rays, req) -> None:
+    """Append one round's per-ray cluster requests (N,), -1 for none."""
+    if rounds is not None:
+        full = torch.full((n,), -1, dtype=torch.long, device=req.device)
+        full[rays] = req
+        rounds.append(full)
+
+
+def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
+                     seed_base=None, rounds=None):
+    """Plain version of ``closest_hier_kernel`` that walks as the kernel
+    does, every ray at once: in each round every walking ray takes the
+    nearest unvisited super and cluster whose slab entry lies strictly below
+    its chopped best (:func:`_next_requests`), gathers that cluster's slots,
+    takes their minimum packed key, and replaces its best only on a strictly
+    smaller key; a ray stops when its supers are drained.  Each ray visits
+    exactly the clusters the kernel visits for it, so this shows the walk's
+    cull, which the brute force of :func:`closest_flat_ref` cannot.
+
+    ``sup`` (>= NS, 6), ``clu`` (NS, S, 6), ``tri`` (12, T) as
+    :func:`trace_closest` takes them; ``seed_key`` / ``seed_base`` as there.
+    ``rounds``: a list that receives each round's (N,) requested cluster id
+    per ray (-1: none), the schedule a warp of the kernel serves.  Returns
+    ``(t_chop (N,) f32, tri (N,) i32, visits (N,) i32)``, ``visits`` the
+    clusters each ray dense-tested.  Test and measurement code: the CPU
+    path of :func:`trace_closest` stays :func:`closest_flat_ref`."""
+    n, c, dev = o.shape[0], spec.cluster_size, o.device
+    sup = sup[:clu.shape[0]]
+    key = (torch.full((n,), _INIT_KEY, dtype=torch.int32, device=dev)
+           if seed_key is None else seed_key.to(torch.int32).clone())
+    base = (torch.full((n,), spec.global_base, dtype=torch.int32, device=dev)
+            if seed_base is None else seed_base.to(torch.int32).clone())
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    rays, cur, svis, cvis = _walk_state(mask, sup, clu)
+    step = max(1, _REF_GATHER_ELEMS // (N_TRI_PLANES * c))
+    lane = torch.arange(c, dtype=torch.int32, device=dev)
+    while rays.numel():
+        req = _next_requests(o[rays], d[rays], None, _key_to_t(key[rays]),
+                             sup, clu, cur, svis, cvis)
+        go = req >= 0
+        rays, cur, svis, cvis, req = (rays[go], cur[go], svis[go], cvis[go],
+                                      req[go])
+        if not rays.numel():
+            break
+        _note_round(rounds, n, rays, req)
+        for s in range(0, rays.shape[0], step):
+            r = rays[s:s + step]
+            cbase = (req[s:s + step] * c).to(torch.int32)
+            t, hit = _cluster_hits(o[r], d[r], tri, cbase, c)
+            vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
+            vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
+            take = vkey < key[r]
+            key[r] = torch.where(take, vkey, key[r])
+            base[r] = torch.where(take, cbase, base[r])
+        visits[rays] += 1
+    found = key < _MISS_KEY
+    tri_id = torch.where(found, base + (key & IDX_MASK),
+                         torch.full_like(base, -1))
+    return _key_to_t(key), tri_id, visits
+
+
+def any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
+                 rounds=None):
+    """Plain version of ``any_hier_kernel`` that walks as the kernel does:
+    every live ray tests the global slots first, then the unoccluded ones
+    walk supers and clusters in entry order under the ``max_t`` slab bound
+    (:func:`_next_requests`), each leaving at its first occluder.  ``rounds``
+    as :func:`closest_hier_ref` (the global test is not a round).  Returns
+    ``(occluded (N,) bool, visits (N,) i32)``, ``visits`` the clusters each
+    ray dense-tested.  Test and measurement code: the CPU path of
+    :func:`trace_any` stays :func:`any_flat_ref`."""
+    n, c, dev = o.shape[0], spec.cluster_size, o.device
+    sup = sup[:clu.shape[0]]
+    occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    live = mask.nonzero()[:, 0]
+    gb, ng = spec.global_base, spec.padded_global
+    for s, e in _ray_chunks(live.shape[0], ng):
+        r = live[s:e]
+        t, hit = _plane_hits(o[r], d[r], tri[:, gb:gb + ng])
+        occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)
+    rays, cur, svis, cvis = _walk_state(mask & ~occ, sup, clu)
+    big = torch.full((n,), BIG_T, dtype=torch.float32, device=dev)
+    step = max(1, _REF_GATHER_ELEMS // (N_TRI_PLANES * c))
+    while rays.numel():
+        req = _next_requests(o[rays], d[rays], max_t[rays], big[rays], sup,
+                             clu, cur, svis, cvis)
+        go = req >= 0
+        rays, cur, svis, cvis, req = (rays[go], cur[go], svis[go], cvis[go],
+                                      req[go])
+        if not rays.numel():
+            break
+        _note_round(rounds, n, rays, req)
+        for s in range(0, rays.shape[0], step):
+            r = rays[s:s + step]
+            t, hit = _cluster_hits(o[r], d[r], tri, req[s:s + step] * c, c)
+            occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)
+        visits[rays] += 1
+        go = ~occ[rays]
+        rays, cur, svis, cvis = rays[go], cur[go], svis[go], cvis[go]
+    return occ, visits
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -445,7 +620,9 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
     bool.
 
     Like the TPU kernels with ``seed_global=False``, both kernels still
-    dense-test the global slots before their cluster walk."""
+    dense-test the global slots before their cluster walk:
+    ``any_flat_kernel`` one thread per ray, ``any_hier_kernel`` through its
+    warp-shared leaf test, as one group of every live lane."""
     n = o.shape[0]
     _check_rays(o, d, mask, (("max_t", max_t, (n,), torch.float32),))
     if o.device.type == "cpu":

@@ -123,10 +123,10 @@ def make_closest_rank(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     hierarchical tracer of :func:`make_tracers`) re-traces the uncertified
     rays, seeded per ray with the walk's key and base.  The reference sorts
     those stragglers to the front and back again so that whole TPU tiles
-    die; a one-thread-per-ray kernel returns at once on a masked ray, so the
-    fallback runs in place (on an H100, packing dragon 1024x1024's
-    stragglers to the front first made the fallback no faster: they are
-    the rays with the long walks; PERF.md)."""
+    die; the CUDA kernel's masked lanes ask for no cluster and cost their
+    warp nothing, so the fallback runs in place (on an H100, packing dragon
+    1024x1024's stragglers to the front first made the fallback no faster;
+    PERF.md)."""
     bvh = spec.bvh
     if (not cfg.rank_trace or trace_cuda._use_flat(bvh)
             or not (bvh.num_global == 0

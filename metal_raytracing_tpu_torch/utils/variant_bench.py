@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""Time the hierarchical kernels K3/K4 built from other source directories
+beside this checkout's, in turns inside one process on one CUDA GPU.
+
+    python3 metal_raytracing_tpu_torch/utils/variant_bench.py [--render] \\
+        [NAME=DIR ...]
+
+Each ``DIR`` holds a ``trace_hier.cu`` and the ``trace_common.cuh`` it
+includes: the ``csrc/`` of an earlier commit unpacked with ``git archive``,
+or an edited copy of this checkout's.  Every variant is built with the
+checkout's nvcc flags into ``build/variants/NAME.so`` and must export the
+checkout's ``launch_closest_hier`` / ``launch_any_hier``; ``tree`` names the
+checkout's own kernels.  The script prints
+
+- the registers and spills of each variant's two kernels (``-Xptxas -v``);
+- for every recorded pass of one dragon 1024x1024 sample (the default
+  config's primary, bounce-1 and bounce-2 closest and shadow passes; with
+  ``compaction=True, rank_trace=2`` the sorted bounce passes, the same rays
+  in a random order, and K3 seeded per ray on the rays the rank walk's
+  certificate leaves open): the share of rays on which a variant's output
+  equals the checkout's, and each variant's ms by CUDA events, forwards
+  through the variants and then backwards (two readings each);
+- with ``--render``, ms/sample and profiled device ms/sample of the dragon
+  main path at ``compaction=False`` and at ``compaction=True,
+  fused_broadphase=True`` with each variant's K3/K4 swapped in, forwards and
+  backwards.
+
+Two cards or two calls differ by more than most variants do: compare only
+the numbers of one run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+SIZE = 1024
+SLICE = dict(compaction=True, rank_trace=2)
+FUSED = dict(compaction=True, fused_broadphase=True)
+ENTRY_POINTS = ("launch_closest_hier", "launch_any_hier")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def build_variants(variants: dict) -> dict:
+    """nvcc every variant's ``trace_hier.cu`` (all started together) and
+    load the libraries; returns name -> CDLL."""
+    from metal_raytracing_tpu_torch.ops import _build
+
+    out_dir = os.path.join(ROOT, "build", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, src_dir in variants.items():
+        so = os.path.join(out_dir, f"{name}.so")
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so,
+             os.path.join(src_dir, "trace_hier.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+@contextlib.contextmanager
+def swapped_in(lib, variant):
+    """The wrappers' K3/K4 entry points replaced by ``variant``'s (None: the
+    checkout's own stay)."""
+    saved = {name: getattr(lib, name) for name in ENTRY_POINTS}
+    if variant is not None:
+        for name in ENTRY_POINTS:
+            fn = getattr(variant, name)
+            fn.argtypes, fn.restype = saved[name].argtypes, ctypes.c_int
+            setattr(lib, name, fn)
+    try:
+        yield
+    finally:
+        for name in ENTRY_POINTS:
+            setattr(lib, name, saved[name])
+
+
+def record_passes(renderer):
+    """The rays of every closest, rank and shadow pass of one sample."""
+    import torch
+
+    from metal_raytracing_tpu_torch import renderer as R
+
+    closest, any_hit = R.make_tracers(renderer.data, renderer.spec, "cuda")
+    rank = R.make_closest_rank(renderer.data, renderer.spec, renderer.cfg,
+                               "cuda", closest)
+    calls = {"closest": [], "any": [], "rank": []}
+
+    def rec_closest(o, d, m, seed, seed_base=None):
+        if seed_base is None:
+            calls["closest"].append((o.contiguous(), d.contiguous(),
+                                     m.clone(), seed.clone()))
+        return closest(o, d, m, seed, seed_base)
+
+    def rec_rank(o, d, m, rank_keys, seed):
+        calls["rank"].append((o.contiguous(), d.contiguous(), m.clone(),
+                              tuple(rank_keys), seed))
+        return rank(o, d, m, rank_keys, seed)
+
+    def rec_any(o, d, mt, m):
+        calls["any"].append((o.contiguous(), d.contiguous(), mt.clone(),
+                             m.clone()))
+        return any_hit(o, d, mt, m)
+
+    R.render_sample(renderer.data, renderer.spec, renderer.cfg,
+                    renderer.offsets, 0,
+                    tracers=(rec_closest, rec_any, rank and rec_rank))
+    torch.cuda.synchronize()
+    return calls
+
+
+def shuffled(args):
+    import torch
+
+    n = args[0].shape[0]
+    perm = torch.randperm(n, device=args[0].device,
+                          generator=torch.Generator(args[0].device)
+                          .manual_seed(0))
+    return tuple(a[perm].contiguous() for a in args)
+
+
+def gather_passes():
+    """name -> (kind, args): ``closest`` args (o, d, mask, seed, seed_base),
+    ``any`` args (o, d, max_t, mask)."""
+    from metal_raytracing_tpu_torch.ops import rank_cuda as RK
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    passes = {}
+    scene = get_scene("dragon", SIZE, SIZE)
+    plain = Renderer(scene, RenderConfig(width=SIZE, height=SIZE),
+                     device="cuda")
+    calls = record_passes(plain)
+    for b, (o, d, m, seed) in enumerate(calls["closest"]):
+        passes[f"K3 bounce {b}"] = ("closest", (o, d, m, seed, None))
+    for b, args in enumerate(calls["any"]):
+        passes[f"K4 bounce {b}"] = ("any", args)
+    sl = Renderer(scene, RenderConfig(width=SIZE, height=SIZE, **SLICE),
+                  device="cuda")
+    calls = record_passes(sl)
+    for b, (o, d, m, keys, seed) in enumerate(calls["rank"], start=1):
+        passes[f"K3 sorted bounce {b}"] = ("closest", (o, d, m, seed, None))
+        so, sd, sm, sseed = shuffled((o, d, m, seed))
+        passes[f"K3 random bounce {b}"] = ("closest", (so, sd, sm, sseed,
+                                                       None))
+        key, base = RK.trace_closest_rank(o, d, m, list(keys[:2]),
+                                          sl.data.tri_planes, sl.spec.bvh,
+                                          seed)
+        unresolved = m & ~RK.rank_certificate(key, keys[2])
+        passes[f"K3 seeded bounce {b}"] = ("closest", (o, d, unresolved, key,
+                                                       base))
+    for b in (1, 2):
+        args = calls["any"][b]
+        passes[f"K4 sorted bounce {b}"] = ("any", args)
+        passes[f"K4 random bounce {b}"] = ("any", shuffled(args))
+    tabs = (plain.data.sup_planes, plain.data.clu_planes,
+            plain.data.tri_planes, plain.spec.bvh)
+    return passes, tabs
+
+
+def time_passes(lib, libs, card):
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    passes, tabs = gather_passes()
+    names = [None] + list(libs)
+    for label, (kind, args) in passes.items():
+        if kind == "closest":
+            o, d, m, seed, sbase = args
+            def run():
+                hit = TC.trace_closest(o, d, m, *tabs, seed, seed_base=sbase)
+                return torch.stack([hit.tri, hit.t.view(torch.int32)], dim=1)
+        else:
+            o, d, mt, m = args
+            run = lambda: TC.trace_any(o, d, mt, m, *tabs)
+        ref = run()
+        cells = []
+        for order in (names, names[::-1]):
+            for name in order:
+                with swapped_in(lib, libs.get(name)):
+                    got = run()
+                    same = float((got == ref).float().mean())
+                    ms = cuda_ms(run)
+                cells.append((name or "tree", same, ms))
+        half = len(names)
+        text = "; ".join(
+            f"{n} {ms:.3f} / {cells[2 * half - 1 - i][2]:.3f} ms"
+            + ("" if n == "tree" else f" (equal {same:.6f})")
+            for i, (n, same, ms) in enumerate(cells[:half]))
+        log(f"  {label} ({int(m.sum())} live of {m.shape[0]}): {text}; on "
+            f"{card}")
+
+
+def time_renders(lib, libs, card, samples: int):
+    import torch
+
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
+
+    scene = get_scene("dragon", SIZE, SIZE)
+    names = [None] + list(libs)
+    for label, kw in (("compaction=False", {}),
+                      ("compaction=True fused_broadphase=True", FUSED)):
+        r = Renderer(scene, RenderConfig(width=SIZE, height=SIZE, **kw),
+                     device="cuda")
+        r.render(1)
+        for name in names + names[::-1]:
+            with swapped_in(lib, libs.get(name)):
+                r.render(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.render(samples)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / samples * 1e3
+                prof = profile_renderer(r, 2)
+            top = ", ".join(f"{k[:24]} {v / prof.samples:.3f}"
+                            for k, v, _ in prof.kernels[:3])
+            log(f"  {label}, {name or 'tree'}: {ms:.3f} ms/sample, device "
+                f"{prof.device_ms_per_sample:.3f} ms/sample ({top}); on "
+                f"{card}")
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="*", metavar="NAME=DIR")
+    ap.add_argument("--render", action="store_true",
+                    help="also time the dragon main path with each variant")
+    ap.add_argument("--samples", type=int, default=4)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("variant_bench: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    from metal_raytracing_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    lib = _build.load_library()
+    for line in _build.build_log.splitlines():
+        if "hier" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas tree: {line.strip()}")
+    variants = dict(v.split("=", 1) for v in args.variants)
+    libs = build_variants(variants)
+    log("per pass, forwards / backwards:")
+    time_passes(lib, libs, card)
+    if args.render:
+        log("main path, forwards then backwards:")
+        time_renders(lib, libs, card, args.samples)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
