@@ -12,7 +12,13 @@ Phases, each of which raises (exit code != 0) on failure:
    (registers and spills from ``-Xptxas -v``);
 2. K1/K2 (the flat kernels) against their plain PyTorch versions on the
    card, on coatball 1024x768's primary and bounce-1 passes, with both times
-   and each pass's bound (the least time the card could take);
+   and each pass's bound (the least time the card could take); then against
+   the plain versions that walk (``closest_flat_walk_ref``,
+   ``any_flat_walk_ref``) on every ray of the primary, bounce-1 and bounce-2
+   passes, with the visits a ray makes, the group-size shares and the bound
+   of the walk's own work, each ms beside the one-thread-per-ray kernels'
+   recorded ms; and K3/K4 forced onto the same rays (``flat=False``)
+   against K1/K2, both timed;
 3. the coatball main path: ``Renderer(coatball 1024x768, RenderConfig())`` on
    ``device="cuda"``: 1 warm-up and 4 timed samples, the image checked, the
    launch counts read, then 2 samples under ``torch.profiler`` (device time
@@ -22,8 +28,7 @@ Phases, each of which raises (exit code != 0) on failure:
 5. K3/K4 (the hierarchical kernels) against their plain versions on dragon
    1024x1024's primary and bounce-1 passes, on every 16th ray (the plain
    versions are brute force over 132k triangle slots); the kernels are timed
-   on the full passes.  Then K3/K4 with ``flat=False`` against K1/K2 on
-   coatball's passes;
+   on the full passes;
 6. K5 (the broad phase) in four modes against its plain version on dragon's
    primary and shadow rays: cluster keys, cluster keys with the second
    nearest, the global seed key, the global occlusion flag;
@@ -110,11 +115,14 @@ CSRC = "metal_raytracing_tpu_torch/csrc/"
 PALLAS = "metal_raytracing_tpu/ops/trace_pallas.py"
 LIBRARY = None  # no PyTorch call computes a packed-key BVH walk
 WARP = 32
-# Kernel ms of the one-thread-per-ray K3/K4 that the warp-cooperative ones
+# Kernel ms of the one-thread-per-ray kernels that the warp-cooperative ones
 # replaced, on the same passes (NVIDIA H100 80GB HBM3, 700 W), printed
-# beside this run's: primary / bounce 1 / bounce 2 at the default config,
-# then the sorted bounce passes and K3 seeded on the uncertified rays.
-ONE_THREAD_MS = {"K3": (4.983, 10.616, 7.696), "K4": (4.351, 6.405, 4.784),
+# beside this run's: primary / bounce 1 / bounce 2 at the default config
+# (K1/K2 on coatball 1024x768, K2 testing 128 global slots; K3/K4 on dragon
+# 1024x1024), then the sorted bounce passes and K3 seeded on the
+# uncertified rays.
+ONE_THREAD_MS = {"K1": (0.855, 2.441, 2.215), "K2": (1.466, 2.477, 1.730),
+                 "K3": (4.983, 10.616, 7.696), "K4": (4.351, 6.405, 4.784),
                  "K3 sorted": (6.059, 3.800), "K4 sorted": (2.340, 1.900),
                  "K3 seeded": (5.371, 3.140)}
 
@@ -365,30 +373,40 @@ def check_any(name, args, data, spec, stride=1, time_plain=True):
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
 
 
-def compare_walks(name, calls, data, spec):
-    """K3/K4 forced onto a flat scene (``flat=False``) against K1/K2 on the
-    same rays: the two walks must agree as a kernel and its plain version
-    do."""
+def compare_walks(name, calls, data, spec, before):
+    """K3/K4 forced onto a flat scene (``flat=False``) against K1/K2 on
+    every recorded pass: the two walks must agree as a kernel and its plain
+    version do.  Prints each kernel's ms beside ``before`` (the
+    one-thread-per-ray K1/K2's)."""
     import torch
 
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
     tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
-    for b in (0, 1):
+    for b in range(len(calls["closest"])):
         o, d, m, seed = calls["closest"][b]
-        flat = TC.trace_closest(o, d, m, *tabs, seed, flat=True)
-        hier = TC.trace_closest(o, d, m, *tabs, seed, flat=False)
+        closest = {f: (lambda f=f: TC.trace_closest(o, d, m, *tabs, seed,
+                                                    flat=f))
+                   for f in (True, False)}
         o2, d2, mt, m2 = calls["any"][b]
-        aflat = TC.trace_any(o2, d2, mt, m2, *tabs, flat=True)
-        ahier = TC.trace_any(o2, d2, mt, m2, *tabs, flat=False)
+        any_ = {f: (lambda f=f: TC.trace_any(o2, d2, mt, m2, *tabs, flat=f))
+                for f in (True, False)}
+        flat, hier = closest[True](), closest[False]()
+        aflat, ahier = any_[True](), any_[False]()
         torch.cuda.synchronize()
         match, n_bad, worst = near_ties(o, d, m, hier.tri, flat.tri,
                                         data.tri_planes)
         amatch = 1.0 - int(((aflat != ahier) & m2).sum()) / max(
             int(m2.sum()), 1)
+        ms = {k: cuda_ms(fn, 10) for k, fn in (
+            ("K1", closest[True]), ("K3", closest[False]),
+            ("K2", any_[True]), ("K4", any_[False]))}
         log(f"  {name} bounce {b}: K3 vs K1 ids equal {match:.6f} "
             f"({n_bad} near-ties, worst {worst:.3e}); K4 vs K2 flags equal "
-            f"{amatch:.6f}")
+            f"{amatch:.6f}; K1 {ms['K1']:.3f} ms (one thread per ray: "
+            f"{before['K1'][b]:.3f}), K3 {ms['K3']:.3f}; K2 {ms['K2']:.3f} ms "
+            f"(one thread per ray: {before['K2'][b]:.3f}), K4 "
+            f"{ms['K4']:.3f}")
         assert match >= MIN_MATCH and worst <= NEAR_TIE_REL, name
         assert amatch >= MIN_MATCH, name
 
@@ -419,20 +437,54 @@ def visit_stats(visits, mask, rounds, ncp):
 
 
 def walk_bound(visits, n, n_live, data, spec, closest):
-    """Bound of the work the walk does for these rays: every live ray one
-    pick over the supers, every visit one pick over its super's clusters
-    and one dense test of a cluster; bytes as :func:`trace_work`."""
+    """Bound of the work the walk does for these rays; bytes as
+    :func:`trace_work`.  Two levels: every live ray one pick over the
+    supers, every visit one pick over its super's clusters and one dense
+    test of a cluster.  One level (the flat kernels): every live ray one
+    pick over all ``ncp`` cluster boxes more than it makes visits (the last
+    pick finds none), every visit one dense test, and for a shadow ray the
+    global set's real slots."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
     bvh = spec.bvh
     ns, s_per = data.clu_planes.shape[0], data.clu_planes.shape[1]
+    n_visits = int(visits.sum())
     nbytes = 4 * (bvh.num_clusters * bvh.cluster_size * 12 + ns * (1 + s_per)
                   * 6) + n * (37 if closest else 30)
-    ops = (n_live * ns * SLAB_OPS + int(visits.sum()) * (
-        s_per * SLAB_OPS + bvh.cluster_size * PLANE_OPS))
+    if TC._use_flat(bvh):
+        ncp = ns * s_per
+        ops = ((n_live + n_visits) * ncp * SLAB_OPS
+               + n_visits * bvh.cluster_size * PLANE_OPS
+               + (0 if closest else n_live * bvh.num_global * PLANE_OPS))
+    else:
+        ops = (n_live * ns * SLAB_OPS + n_visits * (
+            s_per * SLAB_OPS + bvh.cluster_size * PLANE_OPS))
     return bound(nbytes, ops)
 
 
+def walking_ref(spec):
+    """(closest, any) plain versions that walk as the scene's kernels do,
+    with the hierarchical ones' signatures."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    if not TC._use_flat(spec.bvh):
+        return TC.closest_hier_ref, TC.any_hier_ref
+
+    def closest(o, d, m, sup, clu, tri, bvh, seed, seed_base, rounds):
+        assert seed_base is None, "the flat kernel takes no seed_base"
+        return TC.closest_flat_walk_ref(o, d, m, clu, tri, bvh, seed,
+                                        rounds=rounds)
+
+    def any_(o, d, mt, m, sup, clu, tri, bvh, rounds):
+        return TC.any_flat_walk_ref(o, d, mt, m, clu, tri, bvh, rounds=rounds)
+
+    return closest, any_
+
+
 def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
-    """K3 against the plain version that walks, on every ray."""
+    """K1 or K3 against the plain version that walks, on every ray."""
+    import torch
+
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
     o, d, m, seed = args
@@ -441,31 +493,38 @@ def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
     run = lambda: TC.trace_closest(o, d, m, *tabs, seed, seed_base=seed_base)
     hit = run()
     rounds = []
+    walk = walking_ref(spec)[0]
     plain_ms, (t_ref, tri_ref, visits) = cuda_call(
-        lambda: TC.closest_hier_ref(o, d, m, *tabs, seed, seed_base,
-                                    rounds=rounds))
+        lambda: walk(o, d, m, *tabs, seed, seed_base, rounds=rounds))
     match, n_bad, worst = near_ties(o, d, m, hit.tri, tri_ref,
                                     data.tri_planes)
     both = m & (hit.tri == tri_ref) & (tri_ref >= 0)
     err = float((hit.t - t_ref)[both].abs().max()) if bool(both.any()) else 0.0
     dead_same = bool((hit.tri == tri_ref)[~m].all())
+    # the walk is the kernel's, ray by ray: equal bits, not only near-ties
+    same_bits = bool(torch.equal(hit.tri, tri_ref) and torch.equal(
+        hit.t.view(torch.int32), t_ref.view(torch.int32)))
     ms = cuda_ms(run, 10)
     bnd = walk_bound(visits, o.shape[0], int(m.sum()), data, spec, True)
     was = "" if before is None else f" (one thread per ray: {before:.3f} ms)"
     log(f"  {name}: {int(m.sum())} live rays of {o.shape[0]}, every ray "
         f"checked: ids equal {match:.6f}, {n_bad} near-ties (worst exact-t "
-        f"rel {worst:.3e}), max |t - t_plain| {err:.3e}; kernel {ms:.3f} "
+        f"rel {worst:.3e}), max |t - t_plain| {err:.3e}, bit-equal "
+        f"{same_bits}; kernel {ms:.3f} "
         f"ms{was}, walking plain {plain_ms:.3f} ms, bound of the walk's own "
         f"work {bnd[0]:.4f} ms ({bnd[1]}); "
         + visit_stats(visits, m, rounds, ncp))
     assert match >= MIN_MATCH, f"{name}: ids equal on only {match:.6f}"
     assert worst <= NEAR_TIE_REL, f"{name}: mismatch is not a near-tie"
     assert dead_same, f"{name}: masked rays differ"
+    assert same_bits, f"{name}: not bit-equal to the walking plain version"
     return {"err": err, "ms": ms, "plain_walk_ms": plain_ms, "walk_bound": bnd}
 
 
 def check_walk_any(name, args, data, spec, before=None):
-    """K4 against the plain version that walks, on every ray."""
+    """K2 or K4 against the plain version that walks, on every ray."""
+    import torch
+
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
     o, d, mt, m = args
@@ -474,22 +533,26 @@ def check_walk_any(name, args, data, spec, before=None):
     run = lambda: TC.trace_any(o, d, mt, m, *tabs)
     occ = run()
     rounds = []
+    walk = walking_ref(spec)[1]
     plain_ms, (ref, visits) = cuda_call(
-        lambda: TC.any_hier_ref(o, d, mt, m, *tabs, rounds=rounds))
+        lambda: walk(o, d, mt, m, *tabs, rounds=rounds))
     n_live = int(m.sum())
     n_bad = int(((occ != ref) & m).sum())
     match = 1.0 - n_bad / max(n_live, 1)
     dead_same = not bool(occ[~m].any())
+    same_bits = bool(torch.equal(occ, ref))
     ms = cuda_ms(run, 10)
     bnd = walk_bound(visits, o.shape[0], n_live, data, spec, False)
     was = "" if before is None else f" (one thread per ray: {before:.3f} ms)"
     log(f"  {name}: {n_live} live rays of {o.shape[0]}, occluded "
         f"{int((ref & m).sum())}, every ray checked: flags equal "
-        f"{match:.6f}; kernel {ms:.3f} ms{was}, walking plain "
+        f"{match:.6f}, bit-equal {same_bits}; kernel {ms:.3f} ms{was}, "
+        f"walking plain "
         f"{plain_ms:.3f} ms, bound of the walk's own work {bnd[0]:.4f} ms "
         f"({bnd[1]}); " + visit_stats(visits, m, rounds, ncp))
     assert match >= MIN_MATCH, f"{name}: flags equal on only {match:.6f}"
     assert dead_same, f"{name}: masked rays differ"
+    assert same_bits, f"{name}: not bit-equal to the walking plain version"
     return {"err": float(n_bad > 0), "ms": ms, "plain_walk_ms": plain_ms,
             "walk_bound": bnd}
 
@@ -933,6 +996,22 @@ def main() -> int:
         res.setdefault("K2", []).append(check_any(
             f"K2 any bounce {b}", coat_calls["any"][b], probe.data,
             probe.spec))
+    log("  K1/K2 vs the walking plain versions (every ray):")
+    walked = {"K1": [], "K2": [], "K3": [], "K4": []}
+    for b in range(len(coat_calls["closest"])):
+        walked["K1"].append(check_walk_closest(
+            f"K1 closest bounce {b}", coat_calls["closest"][b], probe.data,
+            probe.spec, before=ONE_THREAD_MS["K1"][b]))
+        walked["K2"].append(check_walk_any(
+            f"K2 any bounce {b}", coat_calls["any"][b], probe.data,
+            probe.spec, before=ONE_THREAD_MS["K2"][b]))
+        res["K1"].append(walked["K1"][-1])
+        res["K2"].append(walked["K2"][-1])
+    log("  K3/K4 forced onto the same rays (flat=False) vs K1/K2:")
+    compare_walks("coatball", coat_calls, probe.data, probe.spec,
+                  ONE_THREAD_MS)
+    del coat_calls, probe
+    torch.cuda.empty_cache()
 
     # ---- phase 3: the coatball main path
     log("phase 3: coatball main path")
@@ -967,8 +1046,6 @@ def main() -> int:
         res.setdefault("K4", []).append(check_any(
             f"K4 any bounce {b}", calls["any"][b], dragon.data, dragon.spec,
             CHECK_STRIDE, time_plain=b == 0))
-    compare_walks("coatball flat=False", coat_calls, probe.data, probe.spec)
-    del coat_calls, probe
 
     # ---- phase 6: K5 against its plain version on dragon
     log("phase 6: K5 vs plain version (all rays)")
@@ -993,7 +1070,6 @@ def main() -> int:
             f"{bnd[0]:.4f} ms, {bnd[1]}); K4 {ms2:.3f} ms ({int(m2.sum())} "
             f"live, bound {bnd2[0]:.4f} ms, {bnd2[1]})")
     log("  K3/K4 vs the walking plain versions (every ray):")
-    walked = {"K3": [], "K4": []}
     for b in range(len(calls["closest"])):
         walked["K3"].append(check_walk_closest(
             f"K3 closest bounce {b}", calls["closest"][b], dragon.data,

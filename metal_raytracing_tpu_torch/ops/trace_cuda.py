@@ -12,17 +12,20 @@ padded clusters, or as ``flat=`` says):
 - :func:`trace_any` launches ``any_flat_kernel`` (``_any_flat_kernel``) or
   ``any_hier_kernel`` (``_any_kernel``).
 
-The flat kernels walk one thread per ray; the hierarchical ones keep a walk
-per lane and share each cluster's leaf test among the 32 lanes of a warp
-(``csrc/trace_hier.cu``).  Each wrapper runs its plain PyTorch version
-(:func:`closest_flat_ref`, :func:`any_flat_ref`, which compute the function
-of both walks by brute force) for tensors on the CPU, and launches a kernel
-for tensors on a CUDA device, where it never falls back.
+All four kernels keep a walk per lane and share each requested cluster's
+leaf test among the 32 lanes of a warp (``csrc/trace_warp.cuh``): a walk of
+one level over every cluster box in the flat kernels, of two (supers, then
+their clusters) in the hierarchical ones.  Each wrapper runs its plain
+PyTorch version (:func:`closest_flat_ref`, :func:`any_flat_ref`, which
+compute the function of both walks by brute force) for tensors on the CPU,
+and launches a kernel for tensors on a CUDA device, where it never falls
+back.  :func:`closest_flat_walk_ref`, :func:`any_flat_walk_ref`,
 :func:`closest_hier_ref` and :func:`any_hier_ref` are plain versions that
-walk as the hierarchical kernels do and count each ray's cluster visits;
-tests and ``chip_smoke.py`` hold the kernels against them on every ray.  Each keeps plain integer launch counts that grow by one
-per kernel launch: ``trace_closest.launches`` and ``trace_any.launches``
-(flat), ``trace_closest.launches_hier`` and ``trace_any.launches_hier``.
+walk as the kernels do and count each ray's cluster visits; tests and
+``chip_smoke.py`` hold the kernels against them on every ray.  Each wrapper
+keeps plain integer launch counts that grow by one per kernel launch:
+``trace_closest.launches`` and ``trace_any.launches`` (flat),
+``trace_closest.launches_hier`` and ``trace_any.launches_hier``.
 
 **Outputs follow the TPU kernels' contract.**  A closest hit is the minimum
 over packed keys ``(bits(t) & ~IDX_MASK) | in-cluster index``: positive
@@ -48,7 +51,8 @@ from .intersect import BIG_T, Hit
 
 __all__ = ["pack_triangle_planes", "pack_scene_planes", "super_layout",
            "trace_closest", "trace_any", "closest_flat_ref", "any_flat_ref",
-           "closest_hier_ref", "any_hier_ref",
+           "closest_hier_ref", "any_hier_ref", "closest_flat_walk_ref",
+           "any_flat_walk_ref",
            "global_seed_keys", "global_any_hit", "recompute_tuv",
            "reset_launch_counts", "IDX_BITS", "IDX_MASK"]
 
@@ -327,12 +331,20 @@ def _pick(o, d, boxes, t_max, bound, visited):
 
 
 def _next_requests(o, d, t_max, bound, sup, clu, cur, svis, cvis):
-    """One step of every ray's two-level walk, as the kernels take it: the
-    nearest unvisited cluster of the ray's current super ``cur`` (-1: none
-    yet), else the nearest unvisited super and then its nearest cluster,
-    until the ray has a cluster or its supers are drained.  Updates ``cur``,
-    ``svis`` (n, NS) and ``cvis`` (n, S) in place and returns the requested
-    cluster id (n,), -1 for a ray whose walk has ended."""
+    """One step of every ray's walk, as the kernels take it.  Two levels
+    (the hierarchical kernels): the nearest unvisited cluster of the ray's
+    current super ``cur`` (-1: none yet), else the nearest unvisited super
+    and then its nearest cluster, until the ray has a cluster or its supers
+    are drained; ``svis`` (n, NS) and ``cvis`` (n, S) are the visited masks.
+    One level (the flat kernels, ``sup`` None): the nearest unvisited box of
+    ``clu`` (NCP, 6), ``cvis`` (n, NCP) its visited mask.  Updates ``cur``,
+    ``svis`` and ``cvis`` in place and returns the requested cluster id
+    (n,), -1 for a ray whose walk has ended."""
+    if sup is None:
+        k = _pick(o, d, clu, t_max, bound, cvis)
+        r = (k >= 0).nonzero()[:, 0]
+        cvis[r, k[r]] = True
+        return k
     s_per = clu.shape[1]
     req = torch.full_like(cur, -1)
     todo = torch.ones_like(cur, dtype=torch.bool)
@@ -367,12 +379,14 @@ def _cluster_hits(o, d, tri, cbase, c: int):
 
 
 def _walk_state(mask, sup, clu):
-    """The walking rays' indices and their fresh (cur, svis, cvis)."""
+    """The walking rays' indices and their fresh (cur, svis, cvis), for the
+    walk :func:`_next_requests` takes with these ``sup`` and ``clu``."""
     live = mask.nonzero()[:, 0]
     k, dev = live.shape[0], mask.device
+    n_sup = 0 if sup is None else sup.shape[0]
     return (live, torch.full((k,), -1, dtype=torch.long, device=dev),
-            torch.zeros((k, sup.shape[0]), dtype=torch.bool, device=dev),
-            torch.zeros((k, clu.shape[1]), dtype=torch.bool, device=dev))
+            torch.zeros((k, n_sup), dtype=torch.bool, device=dev),
+            torch.zeros((k, clu.shape[-2]), dtype=torch.bool, device=dev))
 
 
 def _note_round(rounds, n, rays, req) -> None:
@@ -383,26 +397,12 @@ def _note_round(rounds, n, rays, req) -> None:
         rounds.append(full)
 
 
-def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                     seed_base=None, rounds=None):
-    """Plain version of ``closest_hier_kernel`` that walks as the kernel
-    does, every ray at once: in each round every walking ray takes the
-    nearest unvisited super and cluster whose slab entry lies strictly below
-    its chopped best (:func:`_next_requests`), gathers that cluster's slots,
-    takes their minimum packed key, and replaces its best only on a strictly
-    smaller key; a ray stops when its supers are drained.  Each ray visits
-    exactly the clusters the kernel visits for it, so this shows the walk's
-    cull, which the brute force of :func:`closest_flat_ref` cannot.
-
-    ``sup`` (>= NS, 6), ``clu`` (NS, S, 6), ``tri`` (12, T) as
-    :func:`trace_closest` takes them; ``seed_key`` / ``seed_base`` as there.
-    ``rounds``: a list that receives each round's (N,) requested cluster id
-    per ray (-1: none), the schedule a warp of the kernel serves.  Returns
-    ``(t_chop (N,) f32, tri (N,) i32, visits (N,) i32)``, ``visits`` the
-    clusters each ray dense-tested.  Test and measurement code: the CPU
-    path of :func:`trace_closest` stays :func:`closest_flat_ref`."""
+def _walk_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key,
+                  seed_base, rounds):
+    """The closest walk of :func:`closest_hier_ref` (``sup`` the real
+    supers, ``clu`` (NS, S, 6)) or :func:`closest_flat_walk_ref` (``sup``
+    None, ``clu`` (NCP, 6))."""
     n, c, dev = o.shape[0], spec.cluster_size, o.device
-    sup = sup[:clu.shape[0]]
     key = (torch.full((n,), _INIT_KEY, dtype=torch.int32, device=dev)
            if seed_key is None else seed_key.to(torch.int32).clone())
     base = (torch.full((n,), spec.global_base, dtype=torch.int32, device=dev)
@@ -436,25 +436,19 @@ def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
     return _key_to_t(key), tri_id, visits
 
 
-def any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
-                 rounds=None):
-    """Plain version of ``any_hier_kernel`` that walks as the kernel does:
-    every live ray tests the global slots first, then the unoccluded ones
-    walk supers and clusters in entry order under the ``max_t`` slab bound
-    (:func:`_next_requests`), each leaving at its first occluder.  ``rounds``
-    as :func:`closest_hier_ref` (the global test is not a round).  Returns
-    ``(occluded (N,) bool, visits (N,) i32)``, ``visits`` the clusters each
-    ray dense-tested.  Test and measurement code: the CPU path of
-    :func:`trace_any` stays :func:`any_flat_ref`."""
+def _walk_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, g_slots: int,
+              rounds):
+    """The occlusion walk of :func:`any_hier_ref` or
+    :func:`any_flat_walk_ref` (``sup``, ``clu`` as :func:`_walk_closest`),
+    after the global test over ``g_slots`` slots from ``global_base``."""
     n, c, dev = o.shape[0], spec.cluster_size, o.device
-    sup = sup[:clu.shape[0]]
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     visits = torch.zeros((n,), dtype=torch.int32, device=dev)
     live = mask.nonzero()[:, 0]
-    gb, ng = spec.global_base, spec.padded_global
-    for s, e in _ray_chunks(live.shape[0], ng):
+    gb = spec.global_base
+    for s, e in _ray_chunks(live.shape[0], g_slots):
         r = live[s:e]
-        t, hit = _plane_hits(o[r], d[r], tri[:, gb:gb + ng])
+        t, hit = _plane_hits(o[r], d[r], tri[:, gb:gb + g_slots])
         occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)
     rays, cur, svis, cvis = _walk_state(mask & ~occ, sup, clu)
     big = torch.full((n,), BIG_T, dtype=torch.float32, device=dev)
@@ -476,6 +470,70 @@ def any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
         go = ~occ[rays]
         rays, cur, svis, cvis = rays[go], cur[go], svis[go], cvis[go]
     return occ, visits
+
+
+def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
+                     seed_base=None, rounds=None):
+    """Plain version of ``closest_hier_kernel`` that walks as the kernel
+    does, every ray at once: in each round every walking ray takes the
+    nearest unvisited super and cluster whose slab entry lies strictly below
+    its chopped best (:func:`_next_requests`), gathers that cluster's slots,
+    takes their minimum packed key, and replaces its best only on a strictly
+    smaller key; a ray stops when its supers are drained.  Each ray visits
+    exactly the clusters the kernel visits for it, so this shows the walk's
+    cull, which the brute force of :func:`closest_flat_ref` cannot.
+
+    ``sup`` (>= NS, 6), ``clu`` (NS, S, 6), ``tri`` (12, T) as
+    :func:`trace_closest` takes them; ``seed_key`` / ``seed_base`` as there.
+    ``rounds``: a list that receives each round's (N,) requested cluster id
+    per ray (-1: none), the schedule a warp of the kernel serves.  Returns
+    ``(t_chop (N,) f32, tri (N,) i32, visits (N,) i32)``, ``visits`` the
+    clusters each ray dense-tested.  Test and measurement code: the CPU
+    path of :func:`trace_closest` stays :func:`closest_flat_ref`."""
+    return _walk_closest(o, d, mask, sup[:clu.shape[0]], clu, tri, spec,
+                         seed_key, seed_base, rounds)
+
+
+def any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
+                 rounds=None):
+    """Plain version of ``any_hier_kernel`` that walks as the kernel does:
+    every live ray tests the ``padded_global`` global slots first, then the
+    unoccluded ones walk supers and clusters in entry order under the
+    ``max_t`` slab bound (:func:`_next_requests`), each leaving at its
+    first occluder.  ``rounds`` as :func:`closest_hier_ref` (the global
+    test is not a round).  Returns ``(occluded (N,) bool, visits (N,)
+    i32)``, ``visits`` the clusters each ray dense-tested.  Test and
+    measurement code: the CPU path of :func:`trace_any` stays
+    :func:`any_flat_ref`."""
+    return _walk_any(o, d, max_t, mask, sup[:clu.shape[0]], clu, tri, spec,
+                     spec.padded_global, rounds)
+
+
+def closest_flat_walk_ref(o, d, mask, clu, tri, spec: BVHSpec, seed_key=None,
+                          rounds=None):
+    """Plain version of ``closest_flat_kernel`` that walks as the kernel
+    does: :func:`closest_hier_ref`'s rounds on a walk of one level, each
+    walking ray taking the nearest unvisited box of all ``clu`` (NS, S, 6)
+    cluster boxes whose slab entry lies strictly below its chopped best.
+    ``seed_key`` and ``rounds`` as there (the seed's base is
+    ``global_base``).  Returns ``(t_chop, tri, visits)``.  Test and
+    measurement code: the CPU path of :func:`trace_closest` stays
+    :func:`closest_flat_ref`."""
+    return _walk_closest(o, d, mask, None, clu.reshape(-1, 6), tri, spec,
+                         seed_key, None, rounds)
+
+
+def any_flat_walk_ref(o, d, max_t, mask, clu, tri, spec: BVHSpec,
+                      rounds=None):
+    """Plain version of ``any_flat_kernel`` that walks as the kernel does:
+    every live ray tests the ``num_global`` real global slots first, then
+    the unoccluded ones walk all ``clu`` (NS, S, 6) cluster boxes in entry
+    order under the ``max_t`` slab bound, each leaving at its first
+    occluder.  ``rounds`` as :func:`closest_hier_ref`.  Returns
+    ``(occluded, visits)``.  Test and measurement code: the CPU path of
+    :func:`trace_any` stays :func:`any_flat_ref`."""
+    return _walk_any(o, d, max_t, mask, None, clu.reshape(-1, 6), tri, spec,
+                     spec.num_global, rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -620,9 +678,11 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
     bool.
 
     Like the TPU kernels with ``seed_global=False``, both kernels still
-    dense-test the global slots before their cluster walk:
-    ``any_flat_kernel`` one thread per ray, ``any_hier_kernel`` through its
-    warp-shared leaf test, as one group of every live lane."""
+    test the global slots before their cluster walk: ``any_flat_kernel``
+    the ``num_global`` real ones, each lane its own ray;
+    ``any_hier_kernel`` all ``padded_global`` (the TPU kernels' 128-slot
+    chunks, whose padding is never hit), through its warp-shared leaf test
+    as one group of every live lane."""
     n = o.shape[0]
     _check_rays(o, d, mask, (("max_t", max_t, (n,), torch.float32),))
     if o.device.type == "cpu":
@@ -650,7 +710,7 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
             _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(clu_c),
             _ptr(tri_c), n, clu_c.shape[0] * clu_c.shape[1],
             spec.cluster_size, tri_c.shape[1], spec.global_base,
-            spec.padded_global, _ptr(occ), _stream(o.device))
+            spec.num_global, _ptr(occ), _stream(o.device))
         _raise_on(err, lib, "any_flat_kernel")
         trace_any.launches += 1
     return occ

@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""Time the hierarchical kernels K3/K4 built from other source directories
-beside this checkout's, in turns inside one process on one CUDA GPU.
+"""Time traversal kernels built from other source directories beside this
+checkout's, in turns inside one process on one CUDA GPU.
 
-    python3 metal_raytracing_tpu_torch/utils/variant_bench.py [--render] \\
-        [NAME=DIR ...]
+    python3 metal_raytracing_tpu_torch/utils/variant_bench.py [--flat] \\
+        [--render] [--padded NAME ...] [NAME=DIR ...]
 
-Each ``DIR`` holds a ``trace_hier.cu`` and the ``trace_common.cuh`` it
-includes: the ``csrc/`` of an earlier commit unpacked with ``git archive``,
-or an edited copy of this checkout's.  Every variant is built with the
-checkout's nvcc flags into ``build/variants/NAME.so`` and must export the
-checkout's ``launch_closest_hier`` / ``launch_any_hier``; ``tree`` names the
-checkout's own kernels.  The script prints
+Without ``--flat`` the hierarchical kernels K3/K4: each ``DIR`` holds a
+``trace_hier.cu`` and the headers it includes, and the passes are dragon
+1024x1024's.  With ``--flat`` the flat kernels K1/K2: each ``DIR`` holds a
+``trace_flat.cu`` and its headers, and the passes are coatball 1024x768's.
+A ``DIR`` is the ``csrc/`` of an earlier commit unpacked with ``git
+archive``, or an edited copy of this checkout's.  Every variant is built
+with the checkout's nvcc flags into ``build/variants/NAME.so`` and must
+export the checkout's entry points (``launch_closest_hier`` /
+``launch_any_hier``, or ``launch_closest_flat`` / ``launch_any_flat``);
+``tree`` names the checkout's own kernels.  ``--padded NAME`` gives
+variant NAME's K2 the global set's 128-slot padded width (the TPU kernel's
+chunk) in place of the real slot count that the wrapper passes.  The script
+prints
 
 - the registers and spills of each variant's two kernels (``-Xptxas -v``);
-- for every recorded pass of one dragon 1024x1024 sample (the default
-  config's primary, bounce-1 and bounce-2 closest and shadow passes; with
-  ``compaction=True, rank_trace=2`` the sorted bounce passes, the same rays
+- for every recorded pass of one sample (the default config's primary,
+  bounce-1 and bounce-2 closest and shadow passes; for dragon also, with
+  ``compaction=True, rank_trace=2``, the sorted bounce passes, the same rays
   in a random order, and K3 seeded per ray on the rays the rank walk's
   certificate leaves open): the share of rays on which a variant's output
   equals the checkout's, and each variant's ms by CUDA events, forwards
   through the variants and then backwards (two readings each);
-- with ``--render``, ms/sample and profiled device ms/sample of the dragon
-  main path at ``compaction=False`` and at ``compaction=True,
-  fused_broadphase=True`` with each variant's K3/K4 swapped in, forwards and
-  backwards.
+- with ``--render``, ms/sample and profiled device ms/sample of the main
+  path with each variant's kernels swapped in, forwards and backwards:
+  dragon at ``compaction=False`` and at ``compaction=True,
+  fused_broadphase=True``, or coatball at the default config.
 
 Two cards or two calls differ by more than most variants do: compare only
 the numbers of one run.
@@ -44,9 +51,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 sys.path.insert(0, ROOT)
 
 SIZE = 1024
+COATBALL = (1024, 768)
 SLICE = dict(compaction=True, rank_trace=2)
 FUSED = dict(compaction=True, fused_broadphase=True)
-ENTRY_POINTS = ("launch_closest_hier", "launch_any_hier")
+# source and entry points (closest, any) of each kernel pair
+HIER = ("trace_hier.cu", ("launch_closest_hier", "launch_any_hier"))
+FLAT = ("trace_flat.cu", ("launch_closest_flat", "launch_any_flat"))
+G_SLOTS_ARG = 11  # launch_any_flat's g_slots
 
 
 def log(msg: str) -> None:
@@ -68,9 +79,9 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_variants(variants: dict) -> dict:
-    """nvcc every variant's ``trace_hier.cu`` (all started together) and
-    load the libraries; returns name -> CDLL."""
+def build_variants(variants: dict, source: str) -> dict:
+    """nvcc every variant's ``source`` (all started together) and load the
+    libraries; returns name -> CDLL."""
     from metal_raytracing_tpu_torch.ops import _build
 
     out_dir = os.path.join(ROOT, "build", "variants")
@@ -81,7 +92,7 @@ def build_variants(variants: dict) -> dict:
         so = os.path.join(out_dir, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so,
-             os.path.join(src_dir, "trace_hier.cu")],
+             os.path.join(src_dir, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -95,20 +106,32 @@ def build_variants(variants: dict) -> dict:
     return libs
 
 
+def padded_global(fn):
+    """``launch_any_flat`` with its global slot count rounded up to the
+    128-slot chunk of the TPU kernel's lane layout."""
+    def call(*args):
+        args = list(args)
+        args[G_SLOTS_ARG] = -(-args[G_SLOTS_ARG] // 128) * 128
+        return fn(*args)
+    return call
+
+
 @contextlib.contextmanager
-def swapped_in(lib, variant):
-    """The wrappers' K3/K4 entry points replaced by ``variant``'s (None: the
-    checkout's own stay)."""
-    saved = {name: getattr(lib, name) for name in ENTRY_POINTS}
+def swapped_in(lib, entries, variant, padded=False):
+    """The wrappers' ``entries`` replaced by ``variant``'s (None: the
+    checkout's own stay); with ``padded`` its K2 through
+    :func:`padded_global`."""
+    saved = {name: getattr(lib, name) for name in entries}
     if variant is not None:
-        for name in ENTRY_POINTS:
+        for name in entries:
             fn = getattr(variant, name)
             fn.argtypes, fn.restype = saved[name].argtypes, ctypes.c_int
-            setattr(lib, name, fn)
+            setattr(lib, name, padded_global(fn)
+                    if padded and name == "launch_any_flat" else fn)
     try:
         yield
     finally:
-        for name in ENTRY_POINTS:
+        for name in entries:
             setattr(lib, name, saved[name])
 
 
@@ -156,23 +179,28 @@ def shuffled(args):
     return tuple(a[perm].contiguous() for a in args)
 
 
-def gather_passes():
+def gather_passes(flat: bool):
     """name -> (kind, args): ``closest`` args (o, d, mask, seed, seed_base),
-    ``any`` args (o, d, max_t, mask)."""
+    ``any`` args (o, d, max_t, mask); and the plane tables."""
     from metal_raytracing_tpu_torch.ops import rank_cuda as RK
     from metal_raytracing_tpu_torch.renderer import Renderer
     from metal_raytracing_tpu_torch.scenes import get_scene
     from metal_raytracing_tpu_torch.types import RenderConfig
 
     passes = {}
-    scene = get_scene("dragon", SIZE, SIZE)
-    plain = Renderer(scene, RenderConfig(width=SIZE, height=SIZE),
-                     device="cuda")
+    w, h = COATBALL if flat else (SIZE, SIZE)
+    scene = get_scene("coatball" if flat else "dragon", w, h)
+    plain = Renderer(scene, RenderConfig(width=w, height=h), device="cuda")
+    tabs = (plain.data.sup_planes, plain.data.clu_planes,
+            plain.data.tri_planes, plain.spec.bvh)
+    closest, any_ = ("K1", "K2") if flat else ("K3", "K4")
     calls = record_passes(plain)
     for b, (o, d, m, seed) in enumerate(calls["closest"]):
-        passes[f"K3 bounce {b}"] = ("closest", (o, d, m, seed, None))
+        passes[f"{closest} bounce {b}"] = ("closest", (o, d, m, seed, None))
     for b, args in enumerate(calls["any"]):
-        passes[f"K4 bounce {b}"] = ("any", args)
+        passes[f"{any_} bounce {b}"] = ("any", args)
+    if flat:
+        return passes, tabs
     sl = Renderer(scene, RenderConfig(width=SIZE, height=SIZE, **SLICE),
                   device="cuda")
     calls = record_passes(sl)
@@ -191,17 +219,15 @@ def gather_passes():
         args = calls["any"][b]
         passes[f"K4 sorted bounce {b}"] = ("any", args)
         passes[f"K4 random bounce {b}"] = ("any", shuffled(args))
-    tabs = (plain.data.sup_planes, plain.data.clu_planes,
-            plain.data.tri_planes, plain.spec.bvh)
     return passes, tabs
 
 
-def time_passes(lib, libs, card):
+def time_passes(lib, libs, card, entries, padded, flat):
     import torch
 
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
-    passes, tabs = gather_passes()
+    passes, tabs = gather_passes(flat)
     names = [None] + list(libs)
     for label, (kind, args) in passes.items():
         if kind == "closest":
@@ -216,7 +242,8 @@ def time_passes(lib, libs, card):
         cells = []
         for order in (names, names[::-1]):
             for name in order:
-                with swapped_in(lib, libs.get(name)):
+                with swapped_in(lib, entries, libs.get(name),
+                                name in padded):
                     got = run()
                     same = float((got == ref).float().mean())
                     ms = cuda_ms(run)
@@ -230,7 +257,7 @@ def time_passes(lib, libs, card):
             f"{card}")
 
 
-def time_renders(lib, libs, card, samples: int):
+def time_renders(lib, libs, card, samples: int, entries, padded, flat):
     import torch
 
     from metal_raytracing_tpu_torch.renderer import Renderer
@@ -238,15 +265,18 @@ def time_renders(lib, libs, card, samples: int):
     from metal_raytracing_tpu_torch.types import RenderConfig
     from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
 
-    scene = get_scene("dragon", SIZE, SIZE)
+    w, h = COATBALL if flat else (SIZE, SIZE)
+    scene = get_scene("coatball" if flat else "dragon", w, h)
     names = [None] + list(libs)
-    for label, kw in (("compaction=False", {}),
-                      ("compaction=True fused_broadphase=True", FUSED)):
-        r = Renderer(scene, RenderConfig(width=SIZE, height=SIZE, **kw),
+    configs = ((("default config", {}),) if flat else
+               (("compaction=False", {}),
+                ("compaction=True fused_broadphase=True", FUSED)))
+    for label, kw in configs:
+        r = Renderer(scene, RenderConfig(width=w, height=h, **kw),
                      device="cuda")
         r.render(1)
         for name in names + names[::-1]:
-            with swapped_in(lib, libs.get(name)):
+            with swapped_in(lib, entries, libs.get(name), name in padded):
                 r.render(1)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -266,10 +296,15 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*", metavar="NAME=DIR")
+    ap.add_argument("--flat", action="store_true",
+                    help="K1/K2 on coatball 1024x768 (default: K3/K4 on "
+                    "dragon 1024x1024)")
     ap.add_argument("--render", action="store_true",
-                    help="also time the dragon main path with each variant")
+                    help="also time the main path with each variant")
+    ap.add_argument("--padded", action="append", default=[], metavar="NAME",
+                    help="give variant NAME's K2 the padded global width")
     ap.add_argument("--samples", type=int, default=4)
-    args = ap.parse_args()
+    args = ap.parse_intermixed_args()
     if not torch.cuda.is_available():
         print("variant_bench: needs a CUDA GPU", file=sys.stderr)
         return 1
@@ -280,17 +315,22 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(card)
+    source, entries = FLAT if args.flat else HIER
     lib = _build.load_library()
     for line in _build.build_log.splitlines():
-        if "hier" in line or "registers" in line or "spill" in line:
+        if "Compiling" in line or "registers" in line or "spill" in line:
             log(f"  ptxas tree: {line.strip()}")
     variants = dict(v.split("=", 1) for v in args.variants)
-    libs = build_variants(variants)
+    padded = set(args.padded)
+    if not padded <= set(variants):
+        ap.error(f"--padded names no variant: {sorted(padded - set(variants))}")
+    libs = build_variants(variants, source)
     log("per pass, forwards / backwards:")
-    time_passes(lib, libs, card)
+    time_passes(lib, libs, card, entries, padded, args.flat)
     if args.render:
         log("main path, forwards then backwards:")
-        time_renders(lib, libs, card, args.samples)
+        time_renders(lib, libs, card, args.samples, entries, padded,
+                     args.flat)
     return 0
 
 

@@ -1,17 +1,18 @@
-"""The walking plain versions of the hierarchical kernels
-(``closest_hier_ref`` for K3, ``any_hier_ref`` for K4) and the warp's grouped
-leaf service, on the CPU.
+"""The walking plain versions of the traversal kernels
+(``closest_hier_ref`` for K3, ``any_hier_ref`` for K4, and for the flat
+kernels ``closest_flat_walk_ref`` for K1, ``any_flat_walk_ref`` for K2) and
+the warp's grouped leaf service, on the CPU.
 
-The CUDA kernels keep one two-level walk per lane and let the 32 lanes of a
-warp share each requested cluster's leaf test.  They cannot run here; what
+The CUDA kernels keep one walk per lane (two levels in K3/K4, one in K1/K2)
+and let the 32 lanes of a warp share each requested cluster's leaf test.  They cannot run here; what
 can be held here is (a) the walk, in the plain versions that take the
 kernels' picks ray by ray, and (b) the schedule of the shared leaf test, in
 a numpy model that replays the walk's rounds warp by warp, and of the
 box pick the warp shares when few lanes still walk.
 
 Set-ups: coatball at 64x48 with ``flat=False`` (37 clusters, 5 supers of 8),
-as ``tests/test_torch_hier.py``, and one dragon build at 32x24 (344
-clusters, 43 supers of 8).  Rays are the recorded passes of one port sample.
+as ``tests/test_torch_hier.py``, and flat (all 40 cluster boxes, 3 of them
+padding), and one dragon build at 32x24 (344 clusters, 43 supers of 8).  Rays are the recorded passes of one port sample.
 
 Tolerances, each with its reason:
 
@@ -65,6 +66,30 @@ def scenes():
     return out
 
 
+@pytest.fixture(scope="module")
+def brute(scenes):
+    """(scene, kind, bounce) -> the brute-force plain version's result on
+    that recorded pass (``closest_flat_ref`` or ``any_flat_ref``), computed
+    once for the tests of both walks."""
+    memo = {}
+
+    def get(scene, kind, bounce):
+        key = (scene, kind, bounce)
+        if key not in memo:
+            _, _, tdata, tspec, calls = scenes[scene]
+            if kind == "closest":
+                o, d, m, seed = calls["closest"][bounce]
+                memo[key] = TC.closest_flat_ref(o, d, m, tdata.tri_planes,
+                                                tspec.bvh, seed)
+            else:
+                o, d, mt, m = calls["any"][bounce]
+                memo[key] = TC.any_flat_ref(o, d, mt, m, tdata.tri_planes,
+                                            tspec.bvh)
+        return memo[key]
+
+    return get
+
+
 def _tabs(tdata, tspec):
     return tdata.sup_planes, tdata.clu_planes, tdata.tri_planes, tspec.bvh
 
@@ -89,11 +114,11 @@ def _in_cluster(tri, bvh):
 
 
 @pytest.mark.parametrize("scene,bounce", PASSES, ids=IDS)
-def test_closest_walk_matches_brute_force(scenes, scene, bounce):
+def test_closest_walk_matches_brute_force(scenes, brute, scene, bounce):
     _, _, tdata, tspec, calls = scenes[scene]
     o, d, m, seed = calls["closest"][bounce]
     t, tri, visits = TC.closest_hier_ref(o, d, m, *_tabs(tdata, tspec), seed)
-    rt, rtri = TC.closest_flat_ref(o, d, m, tdata.tri_planes, tspec.bvh, seed)
+    rt, rtri = brute(scene, "closest", bounce)
     live = m.numpy()
     assert live.sum() > 0
     same = (tri == rtri).numpy() & live
@@ -109,11 +134,11 @@ def test_closest_walk_matches_brute_force(scenes, scene, bounce):
 
 
 @pytest.mark.parametrize("scene,bounce", PASSES, ids=IDS)
-def test_any_walk_matches_brute_force(scenes, scene, bounce):
+def test_any_walk_matches_brute_force(scenes, brute, scene, bounce):
     _, _, tdata, tspec, calls = scenes[scene]
     o, d, mt, m = calls["any"][bounce]
     occ, visits = TC.any_hier_ref(o, d, mt, m, *_tabs(tdata, tspec))
-    ref = TC.any_flat_ref(o, d, mt, m, tdata.tri_planes, tspec.bvh)
+    ref = brute(scene, "any", bounce)
     live = m.numpy()
     assert live.sum() > 0 and bool(occ[m].any()) and not bool(occ[m].all())
     assert ((occ == ref).numpy() & live).sum() >= MIN_MATCH * live.sum()
@@ -355,17 +380,21 @@ def model_closest(o, d, mask, seed, seed_base, tri, bvh, rounds):
     return t, tri_id, steps[0]
 
 
-def model_any(o, d, max_t, mask, tri, bvh, rounds):
-    """K4 as its warps run it: the global slots as one group of every live
-    lane, then each round's groups.  Returns (occluded, warp steps)."""
+def model_any(o, d, max_t, mask, tri, bvh, rounds, g_slots=None):
+    """K4 as its warps run it: the global slots (``g_slots`` of them,
+    ``padded_global`` by default) as one group of every live lane, then each
+    round's groups.  Returns (occluded, warp steps).  K2 tests its
+    ``num_global`` real global slots lane by lane, each on its own ray,
+    which gives the flags of ``g_slots=num_global`` here."""
     n, c = o.shape[0], bvh.cluster_size
+    g_slots = bvh.padded_global if g_slots is None else g_slots
     occ = np.zeros(n, bool)
     steps = [0]
     for w0 in range(0, n, WARP):
         sl = slice(w0, min(n, w0 + WARP))
         live = [int(lane) for lane in np.nonzero(mask[sl])[0]]
-        hit = _serve_any(tri, bvh.global_base, bvh.padded_global, o[sl],
-                         d[sl], max_t[sl], live, steps)
+        hit = _serve_any(tri, bvh.global_base, g_slots, o[sl], d[sl],
+                         max_t[sl], live, steps)
         occ[[w0 + lane for lane in hit]] = True
     for req in rounds:
         assert (req[occ | ~mask] < 0).all()  # an occluded ray has left
@@ -474,17 +503,23 @@ def _coop_pick_np(boxes, o, d, t_max, bound, visited):
     return int(min(i for b, i in lane_best if b == mn))
 
 
-@pytest.mark.parametrize("level", ["supers", "clusters"])
+@pytest.mark.parametrize("level", ["supers", "clusters", "flat"])
 def test_cooperative_pick_is_the_lanes_own_pick(scenes, level):
     """The pick the warp shares when few lanes walk gives the index each
-    lane's own ``pick_box`` gives (``_pick`` here), ties included."""
-    _, _, tdata, tspec, calls = scenes["dragon"]
+    lane's own ``pick_box`` gives (``_pick`` here), ties included.  The flat
+    level picks among all of coatball's 40 cluster boxes (37 real, 3
+    padding), across a 32-box word of the visited mask."""
+    _, _, tdata, tspec, calls = scenes["coatball" if level == "flat"
+                                      else "dragon"]
     o, d, mt, m = (x[m_] for x, m_ in zip(calls["any"][0],
                                           [calls["any"][0][3]] * 4))
-    o, d, mt = o[:96], d[:96], mt[:96]
+    # coatball's last rows of pixels enter its boxes 32-39
+    sel = slice(-96, None) if level == "flat" else slice(0, 96)
+    o, d, mt = o[sel], d[sel], mt[sel]
     ns = tdata.clu_planes.shape[0]
-    boxes = (tdata.sup_planes[:ns] if level == "supers"
-             else tdata.clu_planes[7])
+    boxes = {"supers": lambda: tdata.sup_planes[:ns],
+             "clusters": lambda: tdata.clu_planes[7],
+             "flat": lambda: tdata.clu_planes.reshape(-1, 6)}[level]()
     rng = np.random.RandomState(11)
     visited = torch.from_numpy(rng.rand(o.shape[0], boxes.shape[0]) < 0.3)
     big = torch.full((o.shape[0],), TC.BIG_T)
@@ -504,9 +539,189 @@ def test_cooperative_pick_is_the_lanes_own_pick(scenes, level):
         assert got == int(want_cut[i])
         n_hit += got >= 0
     assert 0 < n_hit
+    if level == "flat":
+        assert boxes.shape[0] > WARP and int(want_far.max()) >= WARP
 
 
 def test_groups_follow_the_lowest_requesting_lane():
     req = np.array([-1, 7, 3, 7, -1, 3, 9, 7])
     assert list(_groups(req)) == [(7, [1, 3, 7]), (3, [2, 5]), (9, [6])]
     assert list(_groups(np.full(32, -1))) == []
+
+
+# ---------------------------------------------------------------------------
+# The flat walk (K1/K2): one level over every cluster box of coatball
+# ---------------------------------------------------------------------------
+
+
+def _flat(tdata, tspec):
+    return tdata.clu_planes, tdata.tri_planes, tspec.bvh
+
+
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_flat_closest_walk_matches_brute_force(scenes, brute, bounce):
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    o, d, m, seed = calls["closest"][bounce]
+    t, tri, visits = TC.closest_flat_walk_ref(o, d, m, *_flat(tdata, tspec),
+                                              seed)
+    rt, rtri = brute("coatball", "closest", bounce)
+    live = m.numpy()
+    same = (tri == rtri).numpy() & live
+    assert same.sum() >= MIN_MATCH * live.sum()
+    assert_near_ties(o, d, tri.numpy(), rtri.numpy(), live, tdata.tri_planes)
+    assert torch.equal(t[torch.from_numpy(same)], rt[torch.from_numpy(same)])
+    assert torch.equal(tri[~m], rtri[~m]) and torch.equal(t[~m], rt[~m])
+    assert (visits[_in_cluster(tri, tspec.bvh) & m] >= 1).all()
+    assert (visits[~m] == 0).all() and int(visits.max()) >= 2
+    assert int(visits.max()) < tspec.bvh.num_clusters
+
+
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_flat_any_walk_matches_brute_force(scenes, brute, bounce):
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    o, d, mt, m = calls["any"][bounce]
+    occ, visits = TC.any_flat_walk_ref(o, d, mt, m, *_flat(tdata, tspec))
+    ref = brute("coatball", "any", bounce)
+    live = m.numpy()
+    assert bool(occ[m].any()) and not bool(occ[m].all())
+    assert ((occ == ref).numpy() & live).sum() >= MIN_MATCH * live.sum()
+    assert not occ[~m].any() and (visits[~m] == 0).all()
+    assert int(visits.max()) >= 2
+    # the flat walk and the two-level walk give the same flags
+    assert torch.equal(occ, TC.any_hier_ref(o, d, mt, m,
+                                            *_tabs(tdata, tspec))[0])
+
+
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_flat_closest_walk_matches_flat_kernel(scenes, bounce):
+    jdata, jspec, tdata, tspec, calls = scenes["coatball"]
+    o, d, m, seed = calls["closest"][bounce]
+    ref = TP.trace_closest(_j(o), _j(d), _j(m), jdata.sup_planes,
+                           jdata.clu_planes, jdata.tri_planes, jspec.bvh,
+                           block=_block(bounce), seed_key=_j(seed),
+                           exact_uv=False, flat=True)
+    t, tri, _ = TC.closest_flat_walk_ref(o, d, m, *_flat(tdata, tspec), seed)
+    live, tri, jtri = m.numpy(), tri.numpy(), np.asarray(ref.tri)
+    assert ((tri == jtri) & live).sum() >= MIN_MATCH * live.sum()
+    assert_near_ties(o, d, tri, jtri, live, tdata.tri_planes)
+    both = live & (tri == jtri) & (tri >= 0)
+    np.testing.assert_allclose(t.numpy()[both], np.asarray(ref.t)[both],
+                               rtol=NEAR_TIE_REL, atol=1e-4)
+    np.testing.assert_array_equal(tri[~live], jtri[~live])
+
+
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_flat_any_walk_matches_flat_kernel(scenes, bounce):
+    jdata, jspec, tdata, tspec, calls = scenes["coatball"]
+    o, d, mt, m = calls["any"][bounce]
+    ref = np.asarray(TP.trace_any(
+        _j(o), _j(d), _j(mt), _j(m), jdata.sup_planes, jdata.clu_planes,
+        jdata.tri_planes, jspec.bvh, block=_block(bounce), flat=True,
+        seed_global=False))
+    occ, _ = TC.any_flat_walk_ref(o, d, mt, m, *_flat(tdata, tspec))
+    live = m.numpy()
+    assert ((occ.numpy() == ref) & live).sum() >= MIN_MATCH * live.sum()
+    assert not occ.numpy()[~live].any() and not ref[~live].any()
+
+
+FLAT_CASES = [(0, 1024, 512), (1, 0, 1000)]
+FLAT_IDS = [f"bounce{b}-{n}rays" for b, _, n in FLAT_CASES]
+
+
+@pytest.mark.parametrize("bounce,start,count", FLAT_CASES, ids=FLAT_IDS)
+def test_warp_model_gives_the_flat_closest_walks_keys(scenes, bounce, start,
+                                                      count):
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    o, d, m, seed = (x[start:start + count] for x in calls["closest"][bounce])
+    rounds = []
+    t, tri, visits = TC.closest_flat_walk_ref(o, d, m, *_flat(tdata, tspec),
+                                              seed, rounds=rounds)
+    assert len(rounds) == int(visits.max()) >= 2
+    mt, mtri, steps = model_closest(*_np(o, d, m, seed), None,
+                                    tdata.tri_planes.numpy(), tspec.bvh,
+                                    _np(*rounds))
+    np.testing.assert_array_equal(mtri, tri.numpy())
+    np.testing.assert_array_equal(mt.view(np.int32),
+                                  t.numpy().view(np.int32))
+    assert steps == int(visits.sum()) * -(-tspec.bvh.cluster_size // STEP)
+
+
+@pytest.mark.parametrize("bounce,start,count", FLAT_CASES, ids=FLAT_IDS)
+def test_warp_model_gives_the_flat_any_walks_flags(scenes, bounce, start,
+                                                   count):
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    bvh = tspec.bvh
+    o, d, mt, m = (x[start:start + count] for x in calls["any"][bounce])
+    rounds = []
+    occ, visits = TC.any_flat_walk_ref(o, d, mt, m, *_flat(tdata, tspec),
+                                       rounds=rounds)
+    got, steps = model_any(*_np(o, d, mt, m), tdata.tri_planes.numpy(), bvh,
+                           _np(*rounds), g_slots=bvh.num_global)
+    np.testing.assert_array_equal(got, occ.numpy())
+    chunks = -(-bvh.cluster_size // STEP)
+    most = int(visits.sum()) * chunks + int(m.sum()) * -(-bvh.num_global
+                                                         // STEP)
+    assert 0 < steps <= most and (steps < most) == bool(occ.any())
+
+
+def test_global_test_over_the_real_slots_gives_the_same_flags(scenes):
+    """K2 tests the ``num_global`` real global slots, not the 128-slot
+    ``padded_global`` chunk: the padding slots are zero planes, never hit.
+    On unbounded segments (where the floor and walls occlude many rays)
+    and on a recorded shadow pass, in plain PyTorch and in the warp model."""
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    bvh, tri = tspec.bvh, tdata.tri_planes
+    gb, ng, pg = bvh.global_base, bvh.num_global, bvh.padded_global
+    assert 0 < ng < pg
+    o, d, m, _ = calls["closest"][1]
+    mt = torch.full((o.shape[0],), TC.BIG_T)
+    flags = []
+    for width in (ng, pg):
+        t, hit = TC._plane_hits(o, d, tri[:, gb:gb + width])
+        flags.append((hit & (t <= mt[:, None])).any(dim=1) & m)
+    assert torch.equal(*flags) and bool(flags[0].any())
+    assert torch.equal(flags[0], TC.global_any_hit(o, d, mt, m, tri, bvh))
+    o, d, mt, m = (x[:256] for x in calls["any"][0])
+    mt = torch.full_like(mt, TC.BIG_T)  # unbounded: the globals occlude
+    real = model_any(*_np(o, d, mt, m), tri.numpy(), bvh, [], g_slots=ng)
+    padded = model_any(*_np(o, d, mt, m), tri.numpy(), bvh, [], g_slots=pg)
+    np.testing.assert_array_equal(real[0], padded[0])
+    assert real[0].any() and real[1] < padded[1]
+
+
+def test_flat_walk_all_false_mask_leaves_every_ray_at_its_seed(scenes):
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    o, d, _, seed = calls["closest"][1]
+    none = torch.zeros(o.shape[0], dtype=torch.bool)
+    rounds = []
+    t, tri, visits = TC.closest_flat_walk_ref(o, d, none,
+                                              *_flat(tdata, tspec), seed,
+                                              rounds=rounds)
+    rt, rtri = TC.closest_flat_ref(o, d, none, tdata.tri_planes, tspec.bvh,
+                                   seed)
+    assert torch.equal(t, rt) and torch.equal(tri, rtri)
+    assert torch.equal(t, TC._key_to_t(seed))
+    assert not visits.any() and rounds == []
+    o2, d2, mt, _ = calls["any"][1]
+    occ, visits = TC.any_flat_walk_ref(o2, d2, mt, none, *_flat(tdata, tspec),
+                                       rounds=rounds)
+    assert not occ.any() and not visits.any() and rounds == []
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000])
+def test_flat_walk_ragged_ray_counts(scenes, n):
+    """A walk is per ray: the first n rays give the first n results."""
+    _, _, tdata, tspec, calls = scenes["coatball"]
+    assert n % WARP
+    o, d, m, seed = calls["closest"][1]
+    full = TC.closest_flat_walk_ref(o, d, m, *_flat(tdata, tspec), seed)
+    part = TC.closest_flat_walk_ref(o[:n], d[:n], m[:n],
+                                    *_flat(tdata, tspec), seed[:n])
+    for a, b in zip(full, part):
+        assert torch.equal(a[:n], b)
+    o2, d2, mt, m2 = calls["any"][1]
+    full = TC.any_flat_walk_ref(o2, d2, mt, m2, *_flat(tdata, tspec))
+    part = TC.any_flat_walk_ref(o2[:n], d2[:n], mt[:n], m2[:n],
+                                *_flat(tdata, tspec))
+    for a, b in zip(full, part):
+        assert torch.equal(a[:n], b)
