@@ -31,7 +31,11 @@ Phases, each of which raises (exit code != 0) on failure:
    on the full passes;
 6. K5 (the broad phase) in four modes against its plain version on dragon's
    primary and shadow rays: cluster keys, cluster keys with the second
-   nearest, the global seed key, the global occlusion flag;
+   nearest, the global seed key, the global occlusion flag; each mode's
+   kernel ms by CUDA events beside its device ms from the profiler (ten
+   host calls between two events also time the wrapper's Python) and the
+   one-thread-per-ray kernel's recorded ms; then every mode again on the
+   first 1,000,003 rays (a ragged count that fills no block);
 7. the dragon main path: ``Renderer(dragon 1024x1024, RenderConfig())``,
    then with ``fused_broadphase=True``: as phase 3 for each, with the launch
    counts of K3/K4/K5; before it, each recorded pass's kernel ms beside its
@@ -42,10 +46,14 @@ Phases, each of which raises (exit code != 0) on failure:
    of a warp, and the bound of the work the walk really does;
 8. a dragon cross-check at 128x128: the kernels' image against the plain
    versions';
-9. K6 (the rank-directed closest walk) against its plain version on every
-   ray of the sorted bounce-1 and bounce-2 passes of one dragon sample at
-   ``compaction=True, rank_trace=2`` (the plain version gathers only each
-   ray's candidate clusters, so no stride), with both times and the bound;
+9. K6 (the rank-directed closest walk) against its plain version and the
+   plain version that walks as its warps do (``closest_rank_walk_ref``,
+   bit for bit) on every ray of the sorted bounce-1 and bounce-2 passes of
+   one dragon sample at ``compaction=True, rank_trace=2`` (the plain
+   versions gather only each ray's candidate clusters, so no stride), with
+   both times, the bound, the visits a ray makes and the share of visits
+   served in groups of 1, 2-8 and 9-32 rays, each ms beside the
+   one-thread-per-ray kernel's recorded ms;
 10. K3 with a per-ray ``seed_base`` against its plain version on the rays
     K6's certificate leaves open, and K6 + certificate + seeded K3 against
     K3 alone on the whole passes; K3 and K4 timed on the sorted rays and on
@@ -62,8 +70,21 @@ Phases, each of which raises (exit code != 0) on failure:
 13. a dragon cross-check at 128x128 with ``compaction=True, rank_trace=2``.
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
-tables once) over 3.35 TB/s and its FP32 operations over 67 TFLOP/s, the
-H100 SXM's published peaks.  The operations count only the work the pass's
+tables once) over 3.35 TB/s, the H100 SXM's published HBM rate, and its
+FP32 work over the card's own FP32 rates.  The card issues at most 128
+FP32 lanes an SM a clock: times the SMs
+(``torch.cuda.get_device_properties``) and the maximum SM clock
+(``nvidia-smi --query-gpu=clocks.max.sm``), 33.5e12 instructions a second
+on an H100 SXM at 1,980 MHz.  A fused multiply-add does a multiply and an
+add in one such instruction, so the multiplies, adds and subtracts are
+charged at twice that rate, the FMA peak (the data sheet's 67 TFLOP/s),
+and the min/max, compares, clamp and division, which do not fuse, at the
+issue rate.  The kernels are built with ``-fmad=false`` to stay bit-equal
+to the plain versions, but the function does not need that, and the bound
+is the function's.  A slab test is 12 multiply/add flops and 15 other
+operations, a plane test 34 and 5: 21 and 22 issue slots (``SLAB_OPS``,
+``PLANE_OPS``).  The division counts one slot though its reciprocal runs
+on a slower pipe, so the bound stays a lower bound.  The operations count only the work the pass's
 rays need, from the plain versions' results where they ran on the whole
 pass (coatball, K5, and dragon's primary passes, where the plain versions
 are timed) and from the kernels' results where they did not (dragon's
@@ -75,13 +96,17 @@ dense-tested at 39 operations per triangle slot (``tri_hit`` in
 walk must test to find those clusters); for an unoccluded shadow ray every
 cluster its segment overlaps, for an occluded one a single triangle.
 
-It prints one JSON line of per-kernel results, and last the line
+It prints one JSON line of per-kernel results (K5 twice: its closest
+global mode with the launches of ``fused_broadphase=True`` at
+``compaction=False``, and its cluster-key mode with those of phase 12's
+``compaction=True, fused_broadphase=True``), and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits with an error and
 renders nothing (there is no CPU fallback).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -106,11 +131,15 @@ SAME_IMAGE_RMSE = 1e-6
 SLICE = dict(compaction=True, rank_trace=2)
 ROUNDS = 2
 ROUND_SAMPLES = 3
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and FP32 FLOP/s.
+# H100 SXM HBM bytes/s (NVIDIA's data sheet); the FP32 issue rate is the
+# card's own, from fp32_issue_rate() (see the docstring).
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-SLAB_OPS = 27  # slab(): 6 sub, 6 mul, 10 min/max, 1 clamp, 4 compares
-PLANE_OPS = 39  # tri_hit(): 29 mul/add/sub, 1 div, 4 Newton/t, 5 compares
+FP32_LANES_PER_SM = 128
+# FP32 issue slots of one test: a multiply/add flop takes half a slot (two
+# fuse into one FMA), any other operation a whole one.
+SLAB_OPS = 12 // 2 + 15  # slab(): 6 sub, 6 mul; 10 min/max, clamp, 4 cmp
+PLANE_OPS = 34 // 2 + 5  # plane_hit(): 34 mul/add/sub (3 in the Newton
+#                          step); 1 div, 4 compares
 CSRC = "metal_raytracing_tpu_torch/csrc/"
 PALLAS = "metal_raytracing_tpu/ops/trace_pallas.py"
 LIBRARY = None  # no PyTorch call computes a packed-key BVH walk
@@ -120,11 +149,13 @@ WARP = 32
 # beside this run's: primary / bounce 1 / bounce 2 at the default config
 # (K1/K2 on coatball 1024x768, K2 testing 128 global slots; K3/K4 on dragon
 # 1024x1024), then the sorted bounce passes and K3 seeded on the
-# uncertified rays.
+# uncertified rays; K6 on the sorted bounce passes; K5 in the four modes of
+# broadphase_cuda.BROADPHASE_MODES, one ray a thread.
 ONE_THREAD_MS = {"K1": (0.855, 2.441, 2.215), "K2": (1.466, 2.477, 1.730),
                  "K3": (4.983, 10.616, 7.696), "K4": (4.351, 6.405, 4.784),
                  "K3 sorted": (6.059, 3.800), "K4 sorted": (2.340, 1.900),
-                 "K3 seeded": (5.371, 3.140)}
+                 "K3 seeded": (5.371, 3.140), "K6": (1.353, 0.662),
+                 "K5": (0.667, 0.673, 0.040, 0.042)}
 
 
 def log(msg: str) -> None:
@@ -136,6 +167,21 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.cache
+def fp32_issue_rate():
+    """(FP32 instructions a second, SMs, maximum SM clock in MHz) of card
+    0: every SM issues at most 128 FP32 lanes a clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(out.stdout.split()[0])
+    return sms * FP32_LANES_PER_SM * mhz * 1e6, sms, mhz
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -173,9 +219,9 @@ def cuda_call(fn):
 
 def bound(nbytes: int, ops: int):
     """(bound ms, what binds) of a pass: bytes over the HBM rate or FP32
-    operations over the peak rate, whichever takes longer."""
+    issue slots over the card's issue rate, whichever takes longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / fp32_issue_rate()[0] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -411,29 +457,37 @@ def compare_walks(name, calls, data, spec, before):
         assert amatch >= MIN_MATCH, name
 
 
-def visit_stats(visits, mask, rounds, ncp):
+def group_sizes(rounds, ncp):
+    """The rays of each group a warp served: per round, the rays of one
+    32-ray warp that asked for the same cluster."""
+    import torch
+
+    out = []
+    for req in rounds:
+        r = (req >= 0).nonzero()[:, 0]
+        keys = torch.sort((r // WARP) * ncp + req[r]).values
+        out.append(torch.unique_consecutive(keys, return_counts=True)[1])
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.long)
+
+
+def visit_stats(visits, mask, sizes, n_rounds):
     """Text of the visits a live ray makes and of how the warps' requests
     group: the share of visits served in a group of 1, 2-8 or 9-32 rays
-    that asked for the same cluster in the same round."""
+    that asked for the same cluster in the same round (``sizes``, one
+    entry a group)."""
     import torch
 
     v = visits[mask].float()
     if not v.numel():
         return "no live rays"
     q = torch.quantile(v, torch.tensor([0.5, 0.9], device=v.device))
-    shares = torch.zeros(3, dtype=torch.long, device=v.device)
-    for req in rounds:
-        r = (req >= 0).nonzero()[:, 0]
-        keys = torch.sort((r // WARP) * ncp + req[r]).values
-        size = torch.unique_consecutive(keys, return_counts=True)[1]
-        for i, (lo, hi) in enumerate(((1, 1), (2, 8), (9, WARP))):
-            shares[i] += size[(size >= lo) & (size <= hi)].sum()
-    total = max(int(shares.sum()), 1)
+    total = max(int(sizes.sum()), 1)
+    shares = [int(sizes[(sizes >= lo) & (sizes <= hi)].sum()) / total
+              for lo, hi in ((1, 1), (2, 8), (9, WARP))]
     return (f"visits a live ray mean {float(v.mean()):.3f}, p50 "
             f"{float(q[0]):.0f}, p90 {float(q[1]):.0f}, max "
-            f"{int(v.max())}, {len(rounds)} rounds; visits in groups of 1 / "
-            f"2-8 / 9-32 rays: " + " / ".join(
-                f"{int(x) / total:.3f}" for x in shares))
+            f"{int(v.max())}, {n_rounds} rounds; visits in groups of 1 / "
+            f"2-8 / 9-32 rays: " + " / ".join(f"{x:.3f}" for x in shares))
 
 
 def walk_bound(visits, n, n_live, data, spec, closest):
@@ -513,7 +567,7 @@ def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
         f"{same_bits}; kernel {ms:.3f} "
         f"ms{was}, walking plain {plain_ms:.3f} ms, bound of the walk's own "
         f"work {bnd[0]:.4f} ms ({bnd[1]}); "
-        + visit_stats(visits, m, rounds, ncp))
+        + visit_stats(visits, m, group_sizes(rounds, ncp), len(rounds)))
     assert match >= MIN_MATCH, f"{name}: ids equal on only {match:.6f}"
     assert worst <= NEAR_TIE_REL, f"{name}: mismatch is not a near-tie"
     assert dead_same, f"{name}: masked rays differ"
@@ -549,20 +603,13 @@ def check_walk_any(name, args, data, spec, before=None):
         f"{match:.6f}, bit-equal {same_bits}; kernel {ms:.3f} ms{was}, "
         f"walking plain "
         f"{plain_ms:.3f} ms, bound of the walk's own work {bnd[0]:.4f} ms "
-        f"({bnd[1]}); " + visit_stats(visits, m, rounds, ncp))
+        f"({bnd[1]}); " + visit_stats(visits, m, group_sizes(rounds, ncp),
+                                      len(rounds)))
     assert match >= MIN_MATCH, f"{name}: flags equal on only {match:.6f}"
     assert dead_same, f"{name}: masked rays differ"
     assert same_bits, f"{name}: not bit-equal to the walking plain version"
     return {"err": float(n_bad > 0), "ms": ms, "plain_walk_ms": plain_ms,
             "walk_bound": bnd}
-
-
-BP_MODES = (  # (name, pass, want2, with_clusters, any_mode)
-    ("keys", "closest", False, True, False),
-    ("keys+second", "closest", True, True, False),
-    ("closest global", "closest", False, False, False),
-    ("any global", "any", False, False, True),
-)
 
 
 def _key_t(key, idm):
@@ -571,62 +618,90 @@ def _key_t(key, idm):
     return (key & ~idm).view(torch.float32)
 
 
+def compare_broadphase(name, got, ref, m, any_mode):
+    """(worst share of live rays on which one of K5's outputs equals the
+    plain version's, max |t - t_plain|); every key mismatch must lie within
+    one chop step."""
+    from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    n_live = int(m.sum())
+    err, worst_share = 0.0, 1.0
+    for label, g, r in zip(("key1", "key2", "g"), got, ref):
+        assert (g is None) == (r is None), (name, label)
+        if g is None:
+            continue
+        share = 1.0 - int(((g != r) & m).sum()) / max(n_live, 1)
+        worst_share = min(worst_share, share)
+        if label == "g" and any_mode:
+            err = max(err, float((g - r).abs().max()))
+            continue
+        idm = BP.NC_IDM if label != "g" else TC.IDX_MASK
+        sent = BP.NC_SENT if label != "g" else TC._INIT_KEY
+        real = m & (g != sent) & (r != sent)
+        if bool(real.any()):
+            err = max(err, float((_key_t(g, idm) - _key_t(r, idm))[real]
+                                 .abs().max()))
+        step = (idm + 1)
+        off = ((g & ~idm).long() - (r & ~idm).long()).abs()[m & (g != r)]
+        assert bool((off <= step).all()), f"K5 {name} {label}: not 1 step"
+    return worst_share, err
+
+
+RAGGED = 1_000_003  # rays of phase 6's ragged check: fills no block
+
+
 def check_broadphase(calls, data, spec):
     """K5 against its plain version in every mode on all rays of dragon's
-    primary pass (shadow pass for any mode); returns the closest-global
-    mode's result (the fused path's seed pass)."""
+    primary pass (shadow pass for any mode), and on the first ``RAGGED``
+    of them; returns each mode's result."""
     import torch
 
     from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
-    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.utils.metrics import kernel_device_ms
 
     bvh = spec.bvh
     clu, tri = data.clu_planes, data.tri_planes
     ncp = clu.shape[0] * clu.shape[1]
     out = {}
-    for name, kind, want2, with_clusters, any_mode in BP_MODES:
+    for i, (name, kind, want2, with_clusters, any_mode) in enumerate(
+            BP.BROADPHASE_MODES):
         if kind == "any":
             o, d, mt, m = calls["any"][0]
         else:
             (o, d, m, _), mt = calls["closest"][0], None
-        kw = dict(max_t=mt, want2=want2, with_clusters=with_clusters,
+        kw = dict(want2=want2, with_clusters=with_clusters,
                   any_mode=any_mode)
-        got = BP.broadphase_keys(o, d, m, clu, tri, bvh, **kw)
-        ref = BP.broadphase_ref(o, d, m, clu, tri, bvh, **kw)
+        run = lambda: BP.broadphase_keys(o, d, m, clu, tri, bvh, max_t=mt,
+                                         **kw)
+        got = run()
+        ref = BP.broadphase_ref(o, d, m, clu, tri, bvh, max_t=mt, **kw)
         torch.cuda.synchronize()
-        n_live = int(m.sum())
-        err, worst_share = 0.0, 1.0
-        for label, g, r in zip(("key1", "key2", "g"), got, ref):
-            assert (g is None) == (r is None), (name, label)
-            if g is None:
-                continue
-            share = 1.0 - int(((g != r) & m).sum()) / max(n_live, 1)
-            worst_share = min(worst_share, share)
-            if label == "g" and any_mode:
-                err = max(err, float((g - r).abs().max()))
-                continue
-            idm = BP.NC_IDM if label != "g" else TC.IDX_MASK
-            sent = BP.NC_SENT if label != "g" else TC._INIT_KEY
-            real = m & (g != sent) & (r != sent)
-            if bool(real.any()):
-                err = max(err, float((_key_t(g, idm) - _key_t(r, idm))[real]
-                                     .abs().max()))
-            step = (idm + 1)
-            off = ((g & ~idm).long() - (r & ~idm).long()).abs()[m & (g != r)]
-            assert bool((off <= step).all()), f"K5 {name} {label}: not 1 step"
-        ms = cuda_ms(lambda: BP.broadphase_keys(o, d, m, clu, tri, bvh, **kw),
-                     10)
+        share, err = compare_broadphase(name, got, ref, m, any_mode)
+        ro, rd, rm = (x[:RAGGED].contiguous() for x in (o, d, m))
+        rmt = None if mt is None else mt[:RAGGED].contiguous()
+        rshare, rerr = compare_broadphase(
+            name, BP.broadphase_keys(ro, rd, rm, clu, tri, bvh, max_t=rmt,
+                                     **kw),
+            BP.broadphase_ref(ro, rd, rm, clu, tri, bvh, max_t=rmt, **kw), rm,
+            any_mode)
+        ms = cuda_ms(run, 10)
+        dev_ms = kernel_device_ms(run, "broadphase_kernel", 10)
         plain_ms = cuda_ms(lambda: BP.broadphase_ref(o, d, m, clu, tri, bvh,
-                                                     **kw), 1)
+                                                     max_t=mt, **kw), 1)
+        n_live = int(m.sum())
         bnd = bound(*broadphase_work(o.shape[0], n_live, ncp, bvh.num_global,
                                      with_clusters, want2, any_mode))
-        log(f"  K5 {name}: {n_live} live rays, outputs equal "
-            f"{worst_share:.6f}, max |t - t_plain| {err:.3e}; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
-            f"({bnd[1]})")
-        assert worst_share >= MIN_MATCH, f"K5 {name}: {worst_share:.6f}"
-        out[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound": bnd}
+        log(f"  K5 {name}: {n_live} live rays, outputs equal {share:.6f}, "
+            f"max |t - t_plain| {err:.3e}; first {RAGGED} rays: outputs "
+            f"equal {rshare:.6f}; kernel {ms:.3f} ms by events ({dev_ms:.4f} "
+            f"ms device time, profiler; one thread per ray: "
+            f"{ONE_THREAD_MS['K5'][i]:.3f} ms by events), plain "
+            f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        assert share >= MIN_MATCH, f"K5 {name}: {share:.6f}"
+        assert rshare >= MIN_MATCH, f"K5 {name} ragged: {rshare:.6f}"
+        out[name] = {"err": max(err, rerr), "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "bound": bnd}
     return out
 
 
@@ -639,22 +714,28 @@ def _tri_of(key, base):
     return torch.where(key < TC._MISS_KEY, base + (key & TC.IDX_MASK), -1)
 
 
-def check_rank(name, rec, data, spec):
-    """K6 against its plain version on every ray of one recorded sorted
-    pass.  Returns a result dict with the walk's (key, base)."""
+def check_rank(name, rec, data, spec, before):
+    """K6 against its plain version and, bit for bit, against the plain
+    version that walks as its warps do, on every ray of one recorded sorted
+    pass; ``before`` is the one-thread-per-ray kernel's recorded ms.
+    Returns a result dict with the walk's (key, base)."""
     import torch
 
     from metal_raytracing_tpu_torch.ops import rank_cuda as RK
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-    from metal_raytracing_tpu_torch.ops.broadphase_cuda import (NC_IDM,
-                                                                NC_SENT)
 
     o, d, m, keys, seed = rec
     tri, bvh = data.tri_planes, spec.bvh
-    walk = lambda ks: RK.trace_closest_rank(o, d, m, list(ks), tri, bvh, seed)
-    key, base = walk(keys[:2])
+    cand = list(keys[:2])
+    run = lambda: RK.trace_closest_rank(o, d, m, cand, tri, bvh, seed)
+    key, base = run()
     plain_ms, (rkey, rbase) = cuda_call(lambda: RK.closest_rank_ref(
-        o, d, m, list(keys[:2]), tri, bvh, seed))
+        o, d, m, cand, tri, bvh, seed))
+    rounds = []
+    walk_ms, (wkey, wbase, visits, sizes) = cuda_call(
+        lambda: RK.closest_rank_walk_ref(o, d, m, cand, tri, bvh, seed,
+                                         rounds=rounds))
+    same_bits = bool(torch.equal(key, wkey) and torch.equal(base, wbase))
     n_live = int(m.sum())
     equal = int(((key == rkey) & (base == rbase) & m).sum()) / max(n_live, 1)
     dead_same = bool(((key == rkey) & (base == rbase))[~m].all())
@@ -663,32 +744,30 @@ def check_rank(name, rec, data, spec):
     both = m & (key == rkey) & (key < TC._MISS_KEY)
     err = float((TC._key_to_t(key) - TC._key_to_t(rkey))[both].abs().max()
                 ) if bool(both.any()) else 0.0
-    ms = cuda_ms(lambda: walk(keys[:2]), 10)
-    # the clusters this walk dense-tests: rank 1 where its entry lies below
-    # the seed's t, rank 2 where it lies below the best after rank 1
-    entry = lambda pk: (pk & ~NC_IDM).view(torch.float32)
-    seed_t = TC._key_to_t(seed) if seed is not None else TC.BIG_T
-    v1 = m & (keys[0] != NC_SENT) & (entry(keys[0]) < seed_t)
-    key1, _ = walk(keys[:1])
-    v2 = m & (keys[1] != NC_SENT) & (entry(keys[1]) < TC._key_to_t(key1))
-    visits = int(v1.sum()) + int(v2.sum())
+    ms = cuda_ms(run, 10)
+    # the clusters this walk dense-tests: each candidate that survives its
+    # cull, as the walking plain version counts them
     n = o.shape[0]
     nbytes = (n * (12 + 12 + 1 + 4 + 8) + n * 8
               + 48 * bvh.num_clusters * bvh.cluster_size)
-    bnd = bound(nbytes, visits * bvh.cluster_size * PLANE_OPS)
+    bnd = bound(nbytes, int(visits.sum()) * bvh.cluster_size * PLANE_OPS)
     unresolved = m & ~RK.rank_certificate(key, keys[2])
     n_open = int(unresolved.sum())
     log(f"  {name}: {n_live} live rays of {n}, key and base equal "
         f"{equal:.6f} (ids {match:.6f}, {n_bad} near-ties, worst exact-t rel "
-        f"{worst:.3e}), max |t - t_plain| {err:.3e}; {visits} cluster visits "
-        f"({int(v2.sum())} at rank 2); kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); uncertified "
-        f"{n_open} ({n_open / max(n_live, 1):.4f} of live)")
+        f"{worst:.3e}), max |t - t_plain| {err:.3e}, bit-equal to the "
+        f"walking plain version {same_bits}; kernel {ms:.3f} ms (one thread "
+        f"per ray: {before:.3f}), plain {plain_ms:.3f} ms, walking plain "
+        f"{walk_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); uncertified "
+        f"{n_open} ({n_open / max(n_live, 1):.4f} of live); "
+        + visit_stats(visits, m, sizes, len(rounds)))
     assert equal >= MIN_MATCH and match >= MIN_MATCH, f"{name}: {equal:.6f}"
     assert worst <= NEAR_TIE_REL, f"{name}: mismatch is not a near-tie"
     assert dead_same, f"{name}: masked rays differ"
+    assert same_bits, f"{name}: not bit-equal to the walking plain version"
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
-            "key": key, "base": base, "unresolved": unresolved}
+            "plain_walk_ms": walk_ms, "walk_bound": bnd, "key": key,
+            "base": base, "unresolved": unresolved}
 
 
 def check_fallback(name, rec, walk, data, spec):
@@ -809,7 +888,8 @@ CONFIGS = (  # (label, config keywords)
 
 def four_configs(card, size):
     """The dragon main path in four configs in turns (A B C D, twice), with
-    launch counts per timed run.  Returns the slice's counts and samples."""
+    launch counts per timed run.  Returns each config's launch counts over
+    its timed runs, and the samples of those runs."""
     import torch
 
     from metal_raytracing_tpu_torch.io.image import rmse
@@ -827,7 +907,7 @@ def four_configs(card, size):
         r.render(1)
     torch.cuda.synchronize()
     rows = {label: [] for label, _ in CONFIGS}
-    slice_counts, slice_samples = None, 0
+    totals = {label: {} for label, _ in CONFIGS}
     for _ in range(ROUNDS):
         for (label, kw), r in zip(CONFIGS, rs):
             rays0 = r.total_closest_rays + r.total_shadow_rays
@@ -841,10 +921,8 @@ def four_configs(card, size):
             rays = r.total_closest_rays + r.total_shadow_rays - rays0
             rows[label].append((sec / ROUND_SAMPLES * 1e3, rays / sec / 1e6,
                                 counts))
-            if kw is SLICE:
-                slice_samples += ROUND_SAMPLES
-                slice_counts = {k: v + (slice_counts or {}).get(k, 0)
-                                for k, v in counts.items()}
+            totals[label] = {k: v + totals[label].get(k, 0)
+                             for k, v in counts.items()}
     ref = rs[0].image
     for (label, _), r in zip(CONFIGS, rs):
         img = r.image
@@ -861,11 +939,13 @@ def four_configs(card, size):
             f"after {r.total_samples} samples {err:.3e} (gate < "
             f"{SAME_IMAGE_RMSE}); on {card}")
         assert err < SAME_IMAGE_RMSE, (label, err)
-    per = {k: v / slice_samples for k, v in slice_counts.items()}
+    samples = ROUNDS * ROUND_SAMPLES
+    per = {k: v / samples for k, v in totals[CONFIGS[2][0]].items()}
     assert per["closest_rank"] == 2 and per["closest_hier"] == 3, per
     assert per["any_hier"] == 3 and per["closest_flat"] == 0, per
     fused = rows[CONFIGS[3][0]][-1][2]
     assert fused["broadphase"] == 6 * ROUND_SAMPLES, fused
+    assert fused["broadphase_clusters"] >= ROUND_SAMPLES, fused
     sl = rs[2]
     wall_ms = rows[CONFIGS[2][0]][-1][0]
     prof = profile_renderer(sl, 2)
@@ -876,7 +956,7 @@ def four_configs(card, size):
     for name, ms, n in prof.kernels[:8]:
         log(f"    {ms / prof.device_ms:.3f} {ms / prof.samples:.3f} "
             f"ms/sample {n // prof.samples}/sample {name[:90]}")
-    return slice_counts, slice_samples
+    return totals, samples
 
 
 def main_path(renderer, card, label, size):
@@ -925,6 +1005,7 @@ def launch_counts():
             "closest_hier": TC.trace_closest.launches_hier,
             "any_hier": TC.trace_any.launches_hier,
             "broadphase": broadphase_keys.launches,
+            "broadphase_clusters": broadphase_keys.launches_clusters,
             "closest_rank": trace_closest_rank.launches}
 
 
@@ -965,7 +1046,12 @@ def main() -> int:
     t_start = time.perf_counter()
     # ---- phase 1: card, versions, kernel build
     card = card_line()
+    rate, sms, mhz = fp32_issue_rate()
     log(card)
+    log(f"FP32 issue rate {rate:.4e} instructions/s ({sms} SMs x "
+        f"{FP32_LANES_PER_SM} lanes x {mhz:.0f} MHz maximum SM clock), FMA "
+        f"peak {2 * rate:.4e} FLOP/s; the bound charges a test {SLAB_OPS} "
+        f"(slab) or {PLANE_OPS} (plane) issue slots")
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {kind}")
@@ -1111,11 +1197,13 @@ def main() -> int:
                   RenderConfig(width=w, height=h, **SLICE), device="cuda")
     calls = record_passes(sl)
     assert len(calls["rank"]) == 2 and len(calls["any"]) == 3
-    log("phase 9: K6 vs plain version (all rays)")
+    log("phase 9: K6 vs plain version and walking plain version (all rays)")
     walks = []
     for b, rec in enumerate(calls["rank"], start=1):
-        walks.append(check_rank(f"K6 bounce {b}", rec, sl.data, sl.spec))
+        walks.append(check_rank(f"K6 bounce {b}", rec, sl.data, sl.spec,
+                                ONE_THREAD_MS["K6"][b - 1]))
         res.setdefault("K6", []).append(walks[-1])
+    walked["K6"] = walks
 
     # ---- phase 10: the seeded K3, the composition, and what the sort buys
     log("phase 10: K3 with seed_base, and K6 + certificate + K3 vs K3 alone")
@@ -1167,16 +1255,21 @@ def main() -> int:
     # ---- phase 12: four configs in turns
     log(f"phase 12: dragon main path, four configs in turns, {ROUNDS} rounds "
         f"of {ROUND_SAMPLES} samples")
-    slice_counts, slice_samples = four_configs(card, DRAGON)
-    log(f"  slice launches over {slice_samples} samples: {slice_counts}")
+    totals, samples = four_configs(card, DRAGON)
+    slice_counts, fused_counts = totals[CONFIGS[2][0]], totals[CONFIGS[3][0]]
+    log(f"  slice launches over {samples} samples: {slice_counts}; "
+        f"{CONFIGS[3][0]}: {fused_counts}")
     launches["K6"] = slice_counts["closest_rank"]
-    assert launches["K6"] >= 2 * slice_samples
+    assert launches["K6"] >= 2 * samples
+    # K5's cluster sweep runs under compaction with fused_broadphase=True
+    launches["K5 keys"] = fused_counts["broadphase_clusters"]
 
     # ---- phase 13: the slice's image through the kernels vs plain versions
     log("phase 13: dragon cross-check, compaction=True rank_trace=2")
     cross_check("dragon", (128, 128), 1, **SLICE)
 
     kernels = []
+    modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries
     for key, name, src, line, first in (
             ("K1", "closest_flat_kernel", "trace_flat.cu", 1848, res["K1"][0]),
             ("K2", "any_flat_kernel", "trace_flat.cu", 1957, res["K2"][0]),
@@ -1184,7 +1277,9 @@ def main() -> int:
              res["K3"][0]),
             ("K4", "any_hier_kernel", "trace_hier.cu", 1653, res["K4"][0]),
             ("K5", "broadphase_kernel", "broadphase.cu", 960,
-             bp["closest global"]),
+             bp[modes["K5"]]),
+            ("K5 keys", "broadphase_kernel keys", "broadphase.cu", 960,
+             bp[modes["K5 keys"]]),
             ("K6", "closest_rank_kernel", "trace_rank.cu", 1424,
              res["K6"][0])):
         errs = ([r["err"] for r in res[key]] if key in res
@@ -1195,6 +1290,8 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
             "bound_by": first["bound"][1], "library_ms": LIBRARY})
+        if key in modes:  # K5: its mode and the profiler's device time
+            kernels[-1].update(mode=modes[key], device_ms=first["device_ms"])
         if key in walked:  # the walking plain version on the same pass
             kernels[-1]["plain_walk_ms"] = walked[key][0]["plain_walk_ms"]
             kernels[-1]["walk_bound_ms"] = walked[key][0]["walk_bound"][0]

@@ -17,12 +17,35 @@
 // real slots are tested: its padding slots are degenerate triangles that
 // never hit, which the TPU kernel tests anyway in whole 128-slot chunks.
 //
-// What bounds it on an H100: with clusters, the per-ray loop of slab tests
-// over the shared-memory box table (FP32 throughput; dragon: 344 boxes);
-// without them, the ray reads and key writes (bytes: 25-29 B in, 4 B out
-// per ray) against a handful of plane tests.  Every ray does the same work, so the
-// loops do not diverge; the boxes sit in shared memory and the few global
-// plane rows are read through the read-only cache.
+// What bounds it on an H100: with clusters, instruction issue for the
+// sweep of every ray over every box (dragon: 344 boxes, 27 counted
+// operations a slab test, most of them min/max and compares); without
+// them, the ray reads and key writes (bytes: 25-29 B in, 4 B out per ray)
+// against a handful of plane tests.  One ray a thread pays six scalar
+// shared loads and a compare-and-branch top-2 update on top of each slab
+// test.
+//
+// What the design does about it:
+//
+//   * Each thread holds kRays rays (consecutive threads on consecutive
+//     rays, for coalesced reads and writes), so each box read from shared
+//     memory serves kRays slab tests.  This is what pays: on dragon's
+//     primary pass one ray a thread with the rest of this design measured
+//     the old kernel's time, two and four rays 15% less, four a little
+//     faster in the global modes (PERF.md).
+//   * The box table sits in shared memory as a float4 (lo, hi.x) and a
+//     float2 (hi.y, hi.z) a box: two loads a box, broadcast to the warp.
+//   * The top-2 update has no branch: k2 = min(k2, max(k1, key)),
+//     k1 = min(k1, key), with the sentinel for a box the ray misses.  It
+//     equals the compare-and-branch form because the keys of one ray are
+//     distinct (their id bits differ) and no key exceeds the sentinel that
+//     both start from.
+//   * The slab test keeps slab()'s floating-point op order, so the keys
+//     equal the plain version's bit for bit.  The three reciprocals of a
+//     ray are computed only for the cluster sweep; the global test needs
+//     none.
+//   * A thread whose rays are all masked off skips the sweep; the ragged
+//     tail of n (a block past the last ray) masks its rays off.
 //
 // Numerics: see trace_common.cuh.
 
@@ -34,6 +57,7 @@ using namespace mrt;
 
 constexpr int kMaxClusters = 4096;
 constexpr int kNcIdMask = 0xFFF;
+constexpr int kRays = 4;  // rays a thread
 
 __device__ __forceinline__ int nc_sentinel() {
   return (__float_as_int(kBigT) & ~kNcIdMask) | kNcIdMask;
@@ -49,37 +73,98 @@ __global__ void broadphase_kernel(const float* __restrict__ o,
                                   int any_mode, int* __restrict__ key1_out,
                                   int* __restrict__ key2_out,
                                   int* __restrict__ g_out) {
-  extern __shared__ float s_box[];
-  if (key1_out) load_shared(clu, ncp * 6, s_box);
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-
-  bool live = mask[r];
-  Ray ray = load_ray(o, d, r);
-  float tmax = any_mode ? max_t[r] : kBigT;
+  extern __shared__ float4 s_lo[];  // (lo.x, lo.y, lo.z, hi.x) a box
+  float2* s_hi = (float2*)(s_lo + ncp);  // (hi.y, hi.z) a box
   if (key1_out) {
-    int k1 = nc_sentinel(), k2 = nc_sentinel();
-    for (int c = 0; live && c < ncp; ++c) {
-      float tn;
-      if (slab(s_box + 6 * c, ray, tmax, &tn)) {
-        int key = (__float_as_int(tn) & ~kNcIdMask) | c;
-        if (key < k1) {
-          k2 = k1;
-          k1 = key;
-        } else if (key < k2) {
-          k2 = key;
-        }
+    for (int i = threadIdx.x; i < ncp; i += blockDim.x) {
+      const float* b = clu + 6 * i;
+      s_lo[i] = make_float4(b[0], b[1], b[2], b[3]);
+      s_hi[i] = make_float2(b[4], b[5]);
+    }
+    __syncthreads();
+  }
+
+  const int r0 = blockIdx.x * blockDim.x * kRays + threadIdx.x;
+  Ray ray[kRays];
+  float tmax[kRays];
+  bool live[kRays];
+  bool any_live = false;
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    int r = r0 + j * blockDim.x;
+    live[j] = r < n && mask[r];
+    any_live = any_live || live[j];
+    ray[j] = Ray{};
+    tmax[j] = kBigT;
+    if (r < n) {
+      ray[j].ox = o[3 * r + 0];
+      ray[j].oy = o[3 * r + 1];
+      ray[j].oz = o[3 * r + 2];
+      ray[j].dx = d[3 * r + 0];
+      ray[j].dy = d[3 * r + 1];
+      ray[j].dz = d[3 * r + 2];
+      if (any_mode) tmax[j] = max_t[r];
+    }
+  }
+
+  if (key1_out) {
+    int k1[kRays], k2[kRays];
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) {
+      k1[j] = k2[j] = nc_sentinel();
+      ray[j].ix = safe_inv(ray[j].dx);
+      ray[j].iy = safe_inv(ray[j].dy);
+      ray[j].iz = safe_inv(ray[j].dz);
+    }
+    for (int c = 0; any_live && c < ncp; ++c) {
+      float4 a = s_lo[c];
+      float2 b = s_hi[c];
+      const float box[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) {
+        float tn;
+        bool hit = slab(box, ray[j], tmax[j], &tn);
+        int key =
+            hit ? (__float_as_int(tn) & ~kNcIdMask) | c : nc_sentinel();
+        k2[j] = min(k2[j], max(k1[j], key));
+        k1[j] = min(k1[j], key);
       }
     }
-    key1_out[r] = k1;
-    if (key2_out) key2_out[r] = k2;
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) {
+      int r = r0 + j * blockDim.x;
+      if (r < n) {
+        key1_out[r] = live[j] ? k1[j] : nc_sentinel();
+        if (key2_out) key2_out[r] = live[j] ? k2[j] : nc_sentinel();
+      }
+    }
   }
+
   if (g_out) {
-    if (any_mode)
-      g_out[r] = live && dense_any(tri, T, g_base, g_slots, ray, tmax);
-    else
-      g_out[r] = live ? dense_closest(tri, T, g_base, g_slots, ray)
-                      : init_key();
+    // the global slots in order, each slot's planes read once for the
+    // thread's rays: the minimum packed key, or the OR of the flags
+    int g[kRays];
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) g[j] = any_mode ? 0 : init_key();
+    for (int s = 0; any_live && s < g_slots; ++s) {
+      float p[12];
+      load_planes(tri, T, g_base + s, true, p);
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) {
+        float t;
+        bool hit = plane_hit(p, ray[j].ox, ray[j].oy, ray[j].oz, ray[j].dx,
+                             ray[j].dy, ray[j].dz, &t);
+        if (any_mode)
+          g[j] |= hit && t <= tmax[j];
+        else if (hit)
+          g[j] = min(g[j], (__float_as_int(t) & ~kIdxMask) | s);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) {
+      int r = r0 + j * blockDim.x;
+      if (r < n) g_out[r] = live[j] ? g[j] : (any_mode ? 0 : init_key());
+    }
   }
 }
 
@@ -89,8 +174,9 @@ extern "C" {
 
 // Plain C entry point for ctypes.  Null key1_out skips the cluster keys,
 // null key2_out the second-nearest key, null g_out the global set; max_t
-// is read only in any_mode.  Launches `threads` threads per block on the
-// given stream, allocates nothing, and returns cudaGetLastError().
+// is read only in any_mode.  Launches `threads` threads per block, each on
+// kRays rays, on the given stream, allocates nothing, and returns
+// cudaGetLastError().
 int launch_broadphase(const void* o, const void* d, const void* mask,
                       const void* max_t, const void* clu, const void* tri,
                       int n, int ncp, int T, int g_base, int g_slots,
@@ -98,10 +184,12 @@ int launch_broadphase(const void* o, const void* d, const void* mask,
                       void* g_out, int threads, void* stream) {
   if (ncp > kMaxClusters || threads < 32 || threads > 1024 || threads % 32)
     return (int)cudaErrorInvalidValue;
-  size_t smem = key1_out ? sizeof(float) * 6 * (size_t)ncp : 0;
+  size_t smem = key1_out ? (sizeof(float4) + sizeof(float2)) * (size_t)ncp
+                         : 0;
   cudaError_t err = allow_shared(broadphase_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  int blocks = (n + threads - 1) / threads;
+  int per_block = threads * kRays;
+  int blocks = (n + per_block - 1) / per_block;
   broadphase_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float*)o, (const float*)d, (const unsigned char*)mask,
       (const float*)max_t, (const float*)clu, (const float*)tri, n, ncp, T,

@@ -109,31 +109,6 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ tri, int T,
   return plane_hit(p, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t_out);
 }
 
-// Minimum packed key (bits(t) & ~0x1FF) | j over slots [base, base + count)
-// of one cluster, or init_key() when none is hit.
-__device__ __forceinline__ int dense_closest(const float* __restrict__ tri,
-                                             int T, int base, int count,
-                                             const Ray& ray) {
-  int vkey = init_key();
-  for (int j = 0; j < count; ++j) {
-    float t;
-    if (tri_hit(tri, T, base + j, ray, &t))
-      vkey = min(vkey, (__float_as_int(t) & ~kIdxMask) | j);
-  }
-  return vkey;
-}
-
-// Is any slot of [base, base + count) hit within (1e-6, t_max]?
-__device__ __forceinline__ bool dense_any(const float* __restrict__ tri, int T,
-                                          int base, int count, const Ray& ray,
-                                          float t_max) {
-  for (int j = 0; j < count; ++j) {
-    float t;
-    if (tri_hit(tri, T, base + j, ray, &t) && t <= t_max) return true;
-  }
-  return false;
-}
-
 // Block-wide copy of n floats into shared memory, then a barrier.
 __device__ __forceinline__ void load_shared(const float* __restrict__ src,
                                             int n, float* dst) {

@@ -1,4 +1,5 @@
-// Rank-directed closest walk for Hopper (sm_90a).
+// Rank-directed closest walk for Hopper (sm_90a), with a leaf test that the
+// 32 lanes of a warp share.
 //
 // closest_rank_kernel replaces the TPU kernel _rank_closest_kernel
 // (metal_raytracing_tpu/ops/trace_pallas.py, launched by
@@ -13,22 +14,45 @@
 // The TPU kernel works on a tile of 128 rays: it takes the minimum pending
 // key of the whole tile, dense-tests that cluster against every lane, and
 // retires it, so a lane also sees clusters that only its neighbours asked
-// for.  Here one thread owns one ray and walks only its own K candidates in
-// rank order (they come sorted by entry), skipping one whose chopped entry
-// is not below the chopped best so far.  On a ray that the certificate
-// accepts both give the minimum packed key over every cluster that could
-// hold it; on other rays the TPU lane's key can be smaller, and the fallback
-// settles those.
+// for.  Here each ray walks only its own K candidates in rank order (they
+// come sorted by entry), skipping one whose chopped entry is not below the
+// chopped best so far.  On a ray that the certificate accepts both give the
+// minimum packed key over every cluster that could hold it; on other rays
+// the TPU lane's key can be smaller, and the fallback settles those.
 //
-// What bounds it on an H100: the plane reads of up to K x cluster_size
-// slots a ray (L2-resident tables, as for the other walks) and FP32
-// throughput of the 39-operation plane test; neighbouring threads hold
-// neighbouring rays of the compaction sort, which leads with the rank-1 and
-// rank-2 cluster ids, so a warp mostly reads the same slots in step.
+// What bounds it on an H100: instruction issue for the 384 plane tests of
+// a visit (~55 instructions each: IEEE reciprocal, no fused multiply-add)
+// and the loads of twelve plane rows a slot; the plane table stays in the
+// 50 MB L2 (dragon: 6.3 MB).  With one thread per ray a warp runs as long
+// as its slowest lane, lanes whose candidate was culled sit idle, and
+// lanes that stand in different clusters each read their own 32-byte
+// sectors.
+//
+// What the design does about it: trace_hier.cu's leaf path without the
+// picks.  Each lane keeps its ray (in shared memory, for the warp to read as
+// a broadcast), its key and base, and the index of its next rank.  At the
+// top of a round every lane exposes its next surviving candidate (not the
+// sentinel, and entry below its chopped best); the warp groups the lanes by
+// requested cluster and serves each group through serve_closest
+// (trace_warp.cuh: 64 slots a step, two a lane, coalesced row reads, the
+// minimum key back to its owner by __reduce_min_sync); a served lane takes
+// the key only when strictly smaller.  A warp's time is the sum of its
+// lanes' visits over 32, not their maximum; the compaction sort puts rays
+// with the same rank-1 and rank-2 clusters next to each other, so most
+// groups are large.  A lane sees its own candidates in its own rank order
+// with the same culls, so key and base equal the one-thread-per-ray walk
+// and the plain versions bit for bit.  As in trace_hier.cu, all lanes stay
+// to the end, the divergent loop has one exit, and a lane's walk state
+// changes only at the top of a round.
+//
+// Serving each popped cluster to every live lane, the TPU tile's rule on 32
+// rays, was measured: 1.7-3.2x slower, and it certifies no more rays, since
+// a hit from a cluster outside a ray's K candidates lies beyond its
+// rank-(K+1) entry (PERF.md).
 //
 // Numerics and the packed key: see trace_common.cuh.
 
-#include "trace_common.cuh"
+#include "trace_warp.cuh"
 
 namespace {
 
@@ -52,29 +76,50 @@ closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tri, int n, int ranks,
                     int c_size, int T, int g_base,
                     int* __restrict__ key_out, int* __restrict__ base_out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+  __shared__ float4 s_ray[3 * kThreads];
+  const int lane = threadIdx.x & 31;
+  const float4* rays = s_ray + 3 * (threadIdx.x - lane);  // this warp's
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool inside = r < n;
 
-  int key = seed ? seed[r] : init_key();
+  int key = inside && seed ? seed[r] : init_key();
   int base = seed ? g_base : 0;
-  if (mask[r]) {
-    Ray ray = load_ray(o, d, r);
-    for (int k = 0; k < ranks; ++k) {
+  const bool live = inside && mask[r];
+  Ray ray = {};
+  if (live) ray = load_ray(o, d, r);
+  store_ray(s_ray, ray, kBigT);
+  int k = 0;  // the lane's next rank
+  while (true) {
+    // the lane's next candidate that can still give a smaller key: a hit
+    // inside the box has t >= entry >= chopped entry, so a candidate whose
+    // chopped entry is not below the chopped best cannot
+    int req = -1;
+    while (live && req < 0 && k < ranks) {
       int pk = keys[(size_t)k * n + r];
-      if (pk == nc_sentinel()) continue;
-      // a hit inside the box has t >= entry >= chopped entry, so it cannot
-      // give a key below a best whose chopped t is not above that entry
-      if (!(__int_as_float(pk & ~kNcIdMask) < key_to_t(key))) continue;
-      int cbase = (pk & kNcIdMask) * c_size;
-      int vkey = dense_closest(tri, T, cbase, c_size, ray);
-      if (vkey < key) {
+      ++k;
+      if (pk != nc_sentinel() &&
+          __int_as_float(pk & ~kNcIdMask) < key_to_t(key))
+        req = pk & kNcIdMask;
+    }
+    __syncwarp();
+    unsigned pending = __ballot_sync(kFull, req >= 0);
+    if (!pending) break;
+    while (pending) {
+      int c = __shfl_sync(kFull, req, __ffs(pending) - 1);
+      unsigned group = __ballot_sync(kFull, req == c);
+      pending &= ~group;
+      int cbase = c * c_size;
+      int vkey = serve_closest(tri, T, cbase, c_size, group, rays, lane);
+      if (req == c && vkey < key) {
         key = vkey;
         base = cbase;
       }
     }
   }
-  key_out[r] = key;
-  base_out[r] = base;
+  if (inside) {
+    key_out[r] = key;
+    base_out[r] = base;
+  }
 }
 
 }  // namespace

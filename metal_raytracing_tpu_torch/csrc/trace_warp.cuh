@@ -1,6 +1,7 @@
 // Warp-cooperative device code shared by the traversal kernels of
-// trace_flat.cu (K1/K2, a one-level walk per lane) and trace_hier.cu (K3/K4,
-// a two-level walk per lane): the block's rays in shared memory, the box
+// trace_flat.cu (K1/K2, a one-level walk per lane), trace_hier.cu (K3/K4,
+// a two-level walk per lane) and trace_rank.cu (K6, a walk over each lane's
+// own candidate clusters): the block's rays in shared memory, the box
 // pick the warp shares for one picking lane, and the leaf test the warp
 // shares for every lane that asked for the same cluster.  Every function
 // here is called by all 32 lanes of a warp; the design notes are in

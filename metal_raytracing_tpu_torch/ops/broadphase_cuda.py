@@ -5,7 +5,9 @@ kernel ``_broadphase_kernel``: :func:`broadphase_keys` launches
 ``broadphase_kernel`` (``csrc/broadphase.cu``) for tensors on a CUDA device,
 where it never falls back, and runs the plain PyTorch version
 :func:`broadphase_ref` for tensors on the CPU.  ``broadphase_keys.launches``
-counts the kernel's launches.
+counts the kernel's launches, ``broadphase_keys.launches_clusters`` those of
+them that sweep the cluster boxes (:data:`BROADPHASE_MODES` names the four
+modes the renderer calls).
 
 Per ray it gives the packed ``(bits(t_entry) & ~0xFFF) | cluster id`` keys
 of the nearest and second-nearest slab-hit cluster (:data:`NC_SENT` where
@@ -41,12 +43,20 @@ from .trace_cuda import (IDX_MASK, N_TRI_PLANES, _INIT_KEY, _check_rays,
 
 __all__ = ["broadphase_keys", "broadphase_ref", "decode_cluster_key",
            "slab_entry", "nearest_cluster", "nearest_cluster_pair", "NC_SENT",
-           "NC_IDM", "BROADPHASE_MAX_CLUSTERS"]
+           "NC_IDM", "BROADPHASE_MAX_CLUSTERS", "BROADPHASE_MODES"]
 
 # Packed broad-phase keys keep 12 cluster-id bits (trace_pallas._NC_IDM).
 NC_IDM = (1 << 12) - 1
 NC_SENT = int((np.float32(BIG_T).view(np.int32).item() & ~NC_IDM) | NC_IDM)
 BROADPHASE_MAX_CLUSTERS = 4096
+# The kernel's modes as the renderer calls them: (name, the pass whose rays
+# it takes, want2, with_clusters, any_mode).
+BROADPHASE_MODES = (
+    ("keys", "closest", False, True, False),
+    ("keys+second", "closest", True, True, False),
+    ("closest global", "closest", False, False, False),
+    ("any global", "any", False, False, True),
+)
 # Bytes of one (rays x clusters) float32 temporary of the exact broad phase:
 # a full-frame pass runs in a few ray chunks of this size (1M rays x 344
 # clusters: 6), each a fixed number of launches.
@@ -178,10 +188,12 @@ def broadphase_keys(o, d, mask, clu, tri, spec: BVHSpec, max_t=None,
             block, _stream(o.device))
         _raise_on(err, lib, "broadphase_kernel")
         broadphase_keys.launches += 1
+        broadphase_keys.launches_clusters += int(with_clusters)
     return key1, key2, g
 
 
 broadphase_keys.launches = 0
+broadphase_keys.launches_clusters = 0
 
 
 def decode_cluster_key(key: torch.Tensor, ncp: int) -> torch.Tensor:

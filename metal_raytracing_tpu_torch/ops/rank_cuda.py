@@ -19,11 +19,14 @@ step below the rank-(K+1) entry, or there is no such candidate), and the
 caller re-traces the others with ``trace_cuda.trace_closest``, seeded with
 this walk's key and base.
 
-Against the TPU kernel: that one dense-tests each popped cluster against
-all 128 rays of its tile, so a lane may also get hits from clusters only
-its neighbours asked for.  On certified rays the two agree; elsewhere the
-TPU key can be the smaller one, and after the fallback both equal the full
-walk.
+The kernel walks a ray per lane and lets the 32 lanes of a warp share the
+leaf test of each cluster that some of them asked for in the same round;
+:func:`closest_rank_walk_ref` replays those rounds for the tests and the
+card's checks.  Against the TPU kernel: that one dense-tests each popped
+cluster against all 128 rays of its tile, so a lane may also get hits from
+clusters only its neighbours asked for.  On certified rays the two agree;
+elsewhere the TPU key can be the smaller one, and after the fallback both
+equal the full walk.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from .trace_cuda import (IDX_BITS, IDX_MASK, N_TRI_PLANES, _INIT_KEY,
                          _REF_GATHER_ELEMS, _check_rays, _check_tables,
                          _key_to_t, _plane_hits, _ptr, _raise_on, _stream)
 
-__all__ = ["trace_closest_rank", "closest_rank_ref", "rank_certificate"]
+__all__ = ["trace_closest_rank", "closest_rank_ref", "closest_rank_walk_ref",
+           "rank_certificate"]
 
 
 def _entry_t(pk: torch.Tensor) -> torch.Tensor:
@@ -80,6 +84,60 @@ def closest_rank_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
             key[r] = torch.where(take, vkey, key[r])
             base[r] = torch.where(take, cbase, base[r])
     return key, base
+
+
+def closest_rank_walk_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
+                          seed_key=None, rounds=None):
+    """Plain version of ``closest_rank_kernel`` that walks as its warps do.
+    In each round every live ray takes its next candidate that survives
+    the cull (not the sentinel, chopped entry below its chopped best), the
+    rays of each 32-ray group in ray order (a warp) that asked for the same
+    cluster form one group, and each requesting ray takes that cluster's
+    minimum packed key when strictly smaller; a ray stops when its ranks
+    run out.  Key and base equal :func:`closest_rank_ref`'s bit for bit.
+
+    ``rounds``: a list that receives each round's (N,) requested cluster
+    id per ray (-1: none).  Returns ``(key (N,) i32, base (N,) i32, visits
+    (N,) i32, sizes (G,) i64)``: ``visits`` the clusters each ray
+    dense-tested, ``sizes`` the lanes of each group a warp served, over all
+    rounds.  Test and measurement code: the CPU path of
+    :func:`trace_closest_rank` stays :func:`closest_rank_ref`."""
+    n, c, dev = o.shape[0], spec.cluster_size, o.device
+    key, base = _start(n, spec, seed_key, dev)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    nxt = torch.zeros((n,), dtype=torch.long, device=dev)  # next rank
+    warp = torch.arange(n, device=dev) // 32
+    lane = torch.arange(c, dtype=torch.int32, device=dev)
+    step = max(1, _REF_GATHER_ELEMS // (N_TRI_PLANES * c))
+    sizes = []
+    while True:
+        req = torch.full((n,), -1, dtype=torch.long, device=dev)
+        for k, pk in enumerate(rank_keys):
+            go = (mask & (req < 0) & (nxt <= k) & (pk != NC_SENT)
+                  & (_entry_t(pk) < _key_to_t(key)))
+            req = torch.where(go, (pk & NC_IDM).long(), req)
+            nxt = torch.where(go, k + 1, nxt)
+        rays = (req >= 0).nonzero()[:, 0]
+        if not rays.numel():
+            break
+        if rounds is not None:
+            rounds.append(req)
+        groups = warp[rays] * (NC_IDM + 1) + req[rays]
+        sizes.append(torch.unique(groups, return_counts=True)[1])
+        for s in range(0, rays.shape[0], step):
+            r = rays[s:s + step]
+            cbase = (req[r] * c).to(torch.int32)
+            cols = (cbase[:, None] + lane[None, :]).long()
+            t, hit = _plane_hits(o[r], d[r], tri[:, cols])
+            vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
+            vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
+            take = vkey < key[r]
+            key[r] = torch.where(take, vkey, key[r])
+            base[r] = torch.where(take, cbase, base[r])
+        visits[rays] += 1
+    sizes = (torch.cat(sizes) if sizes
+             else torch.zeros((0,), dtype=torch.long, device=dev))
+    return key, base, visits, sizes
 
 
 def trace_closest_rank(o, d, mask, rank_keys, tri, spec: BVHSpec,

@@ -728,5 +728,5 @@ def reset_launch_counts() -> None:
 
     trace_closest.launches = trace_closest.launches_hier = 0
     trace_any.launches = trace_any.launches_hier = 0
-    broadphase_keys.launches = 0
+    broadphase_keys.launches = broadphase_keys.launches_clusters = 0
     trace_closest_rank.launches = 0

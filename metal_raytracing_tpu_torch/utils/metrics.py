@@ -16,7 +16,7 @@ import time
 import torch
 
 __all__ = ["BenchResult", "benchmark_renderer", "ProfileResult",
-           "profile_renderer"]
+           "profile_renderer", "kernel_device_ms"]
 
 
 @dataclasses.dataclass
@@ -106,3 +106,28 @@ def profile_renderer(renderer, samples: int = 2) -> ProfileResult:
     return ProfileResult(samples=samples,
                          device_ms=sum(r[1] for r in rows),
                          launches=sum(r[2] for r in rows), kernels=rows)
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Mean device milliseconds of one launch of the CUDA kernel whose name
+    holds ``kernel``, over ``iters`` calls of ``fn()`` after one warm-up
+    call (``torch.profiler``, CUPTI): the device's own time, which CUDA
+    events around a few-microsecond kernel cannot tell apart from the
+    host's launch cost.  Averaged over the launches the profiler recorded,
+    so a record it dropped does not count as zero time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(evt.device_time_total, evt.count) for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and kernel in evt.key]
+    launches = sum(n for _, n in rows)
+    if not launches:
+        raise RuntimeError(f"the profiler recorded no launch of {kernel}")
+    return sum(t for t, _ in rows) / 1e3 / launches

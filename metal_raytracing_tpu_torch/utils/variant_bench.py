@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Time traversal kernels built from other source directories beside this
-checkout's, in turns inside one process on one CUDA GPU.
+"""Time kernels built from other source directories beside this checkout's,
+in turns inside one process on one CUDA GPU.
 
-    python3 metal_raytracing_tpu_torch/utils/variant_bench.py [--flat] \\
-        [--render] [--padded NAME ...] [NAME=DIR ...]
+    python3 metal_raytracing_tpu_torch/utils/variant_bench.py \\
+        [--flat | --rank | --broadphase] [--render] [--padded NAME ...] \\
+        [NAME=DIR ...]
 
-Without ``--flat`` the hierarchical kernels K3/K4: each ``DIR`` holds a
+By default the hierarchical kernels K3/K4: each ``DIR`` holds a
 ``trace_hier.cu`` and the headers it includes, and the passes are dragon
 1024x1024's.  With ``--flat`` the flat kernels K1/K2: each ``DIR`` holds a
 ``trace_flat.cu`` and its headers, and the passes are coatball 1024x768's.
-A ``DIR`` is the ``csrc/`` of an earlier commit unpacked with ``git
-archive``, or an edited copy of this checkout's.  Every variant is built
-with the checkout's nvcc flags into ``build/variants/NAME.so`` and must
-export the checkout's entry points (``launch_closest_hier`` /
-``launch_any_hier``, or ``launch_closest_flat`` / ``launch_any_flat``);
+With ``--rank`` the rank walk K6 (``trace_rank.cu``) on dragon's sorted
+bounce-1 and bounce-2 passes at ``compaction=True, rank_trace=2``; with
+``--broadphase`` the broad phase K5 (``broadphase.cu``) in its four modes
+on dragon's primary closest and shadow passes.  A ``DIR`` is the ``csrc/``
+of an earlier commit unpacked with ``git archive``, or an edited copy of
+this checkout's.  Every variant is built with the checkout's nvcc flags
+into ``build/variants/NAME.so`` and must export the checkout's entry points
+(``launch_closest_hier`` / ``launch_any_hier``, ``launch_closest_flat`` /
+``launch_any_flat``, ``launch_closest_rank`` or ``launch_broadphase``);
 ``tree`` names the checkout's own kernels.  ``--padded NAME`` gives
 variant NAME's K2 the global set's 128-slot padded width (the TPU kernel's
 chunk) in place of the real slot count that the wrapper passes.  The script
@@ -26,11 +31,18 @@ prints
   in a random order, and K3 seeded per ray on the rays the rank walk's
   certificate leaves open): the share of rays on which a variant's output
   equals the checkout's, and each variant's ms by CUDA events, forwards
-  through the variants and then backwards (two readings each);
+  through the variants and then backwards (two readings each); with
+  ``--rank`` also the rays each variant's keys leave uncertified and the
+  ms of the variant + certificate + the checkout's seeded K3, beside K3
+  alone; with ``--broadphase`` also each variant's device ms from the
+  profiler (CUDA events around ten host calls of a few-microsecond kernel
+  time the wrapper too);
 - with ``--render``, ms/sample and profiled device ms/sample of the main
   path with each variant's kernels swapped in, forwards and backwards:
   dragon at ``compaction=False`` and at ``compaction=True,
-  fused_broadphase=True``, or coatball at the default config.
+  fused_broadphase=True`` (K3/K4), at ``compaction=True, rank_trace=2``
+  (K6) or at ``compaction=True, fused_broadphase=True`` (K5), or coatball
+  at the default config (K1/K2).
 
 Two cards or two calls differ by more than most variants do: compare only
 the numbers of one run.
@@ -54,9 +66,21 @@ SIZE = 1024
 COATBALL = (1024, 768)
 SLICE = dict(compaction=True, rank_trace=2)
 FUSED = dict(compaction=True, fused_broadphase=True)
-# source and entry points (closest, any) of each kernel pair
-HIER = ("trace_hier.cu", ("launch_closest_hier", "launch_any_hier"))
-FLAT = ("trace_flat.cu", ("launch_closest_flat", "launch_any_flat"))
+# source and entry points of each kernel family
+KERNELS = {
+    "hier": ("trace_hier.cu", ("launch_closest_hier", "launch_any_hier")),
+    "flat": ("trace_flat.cu", ("launch_closest_flat", "launch_any_flat")),
+    "rank": ("trace_rank.cu", ("launch_closest_rank",)),
+    "broadphase": ("broadphase.cu", ("launch_broadphase",)),
+}
+# the main-path configs --render times for each family
+RENDERS = {
+    "hier": (("compaction=False", {}),
+             ("compaction=True fused_broadphase=True", FUSED)),
+    "flat": (("default config", {}),),
+    "rank": (("compaction=True rank_trace=2", SLICE),),
+    "broadphase": (("compaction=True fused_broadphase=True", FUSED),),
+}
 G_SLOTS_ARG = 11  # launch_any_flat's g_slots
 
 
@@ -222,13 +246,32 @@ def gather_passes(flat: bool):
     return passes, tabs
 
 
+def in_turns(lib, libs, entries, measure, padded=()):
+    """``measure()`` with each variant's kernels swapped in (the checkout's
+    first), forwards through the variants and then backwards: a list of
+    (name, value), forwards then backwards."""
+    names = [None] + list(libs)
+    cells = []
+    for name in names + names[::-1]:
+        with swapped_in(lib, entries, libs.get(name), name in padded):
+            cells.append((name or "tree", measure()))
+    return cells
+
+
+def _cells_text(cells, extra):
+    """One variant a cell, forwards / backwards, from :func:`in_turns`'
+    cells; ``extra(name, fwd, bwd)`` gives the text after the name."""
+    half = len(cells) // 2
+    return "; ".join(f"{n} " + extra(n, fwd, cells[2 * half - 1 - i][1])
+                     for i, (n, fwd) in enumerate(cells[:half]))
+
+
 def time_passes(lib, libs, card, entries, padded, flat):
     import torch
 
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
     passes, tabs = gather_passes(flat)
-    names = [None] + list(libs)
     for label, (kind, args) in passes.items():
         if kind == "closest":
             o, d, m, seed, sbase = args
@@ -239,25 +282,99 @@ def time_passes(lib, libs, card, entries, padded, flat):
             o, d, mt, m = args
             run = lambda: TC.trace_any(o, d, mt, m, *tabs)
         ref = run()
-        cells = []
-        for order in (names, names[::-1]):
-            for name in order:
-                with swapped_in(lib, entries, libs.get(name),
-                                name in padded):
-                    got = run()
-                    same = float((got == ref).float().mean())
-                    ms = cuda_ms(run)
-                cells.append((name or "tree", same, ms))
-        half = len(names)
-        text = "; ".join(
-            f"{n} {ms:.3f} / {cells[2 * half - 1 - i][2]:.3f} ms"
-            + ("" if n == "tree" else f" (equal {same:.6f})")
-            for i, (n, same, ms) in enumerate(cells[:half]))
+        cells = in_turns(lib, libs, entries, lambda: (
+            float((run() == ref).float().mean()), cuda_ms(run)), padded)
+        text = _cells_text(cells, lambda n, f, bk: (
+            f"{f[1]:.3f} / {bk[1]:.3f} ms"
+            + ("" if n == "tree" else f" (equal {f[0]:.6f})")))
         log(f"  {label} ({int(m.sum())} live of {m.shape[0]}): {text}; on "
             f"{card}")
 
 
-def time_renders(lib, libs, card, samples: int, entries, padded, flat):
+def time_rank(lib, libs, card, entries):
+    """K6 variants on dragon's sorted bounce passes: equality with the
+    checkout's key and base, uncertified rays, K6 ms, and K6 + certificate
+    + the checkout's seeded K3 against K3 alone."""
+    import torch
+
+    from metal_raytracing_tpu_torch import renderer as R
+    from metal_raytracing_tpu_torch.ops import rank_cuda as RK
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    sl = Renderer(get_scene("dragon", SIZE, SIZE),
+                  RenderConfig(width=SIZE, height=SIZE, **SLICE),
+                  device="cuda")
+    tabs = (sl.data.sup_planes, sl.data.clu_planes, sl.data.tri_planes,
+            sl.spec.bvh)
+    closest = R.make_tracers(sl.data, sl.spec, "cuda")[0]
+    rank = R.make_closest_rank(sl.data, sl.spec, sl.cfg, "cuda", closest)
+    for b, (o, d, m, keys, seed) in enumerate(record_passes(sl)["rank"],
+                                              start=1):
+        walk = lambda: torch.stack(RK.trace_closest_rank(
+            o, d, m, list(keys[:2]), tabs[2], tabs[3], seed), dim=1)
+        ref = walk()
+
+        def measure():
+            got = walk()
+            return (float((got == ref).all(dim=1).float().mean()),
+                    int((m & ~RK.rank_certificate(got[:, 0], keys[2])).sum()),
+                    cuda_ms(walk),
+                    cuda_ms(lambda: rank(o, d, m, keys, seed)))
+
+        cells = in_turns(lib, libs, entries, measure)
+        ms_alone = cuda_ms(lambda: TC.trace_closest(o, d, m, *tabs, seed))
+        text = _cells_text(cells, lambda n, f, bk: (
+            f"{f[2]:.3f} / {bk[2]:.3f} ms, with certificate and seeded K3 "
+            f"{f[3]:.3f} / {bk[3]:.3f} ms, uncertified {f[1]}"
+            + ("" if n == "tree" else f", equal {f[0]:.6f}")))
+        log(f"  K6 sorted bounce {b} ({int(m.sum())} live of {m.shape[0]}):"
+            f" {text}; K3 alone {ms_alone:.3f} ms; on {card}")
+
+
+def time_broadphase(lib, libs, card, entries):
+    """K5 variants in the four modes on dragon's primary closest pass (the
+    shadow pass for the any mode): equality with the checkout's outputs, ms
+    by CUDA events and device ms from the profiler."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils.metrics import kernel_device_ms
+
+    r = Renderer(get_scene("dragon", SIZE, SIZE),
+                 RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    calls = record_passes(r)
+    clu, tri, bvh = r.data.clu_planes, r.data.tri_planes, r.spec.bvh
+    for label, kind, want2, with_clusters, any_mode in BP.BROADPHASE_MODES:
+        if kind == "any":
+            o, d, mt, m = calls["any"][0]
+        else:
+            (o, d, m, _), mt = calls["closest"][0], None
+
+        def run():
+            out = BP.broadphase_keys(o, d, m, clu, tri, bvh, max_t=mt,
+                                     want2=want2,
+                                     with_clusters=with_clusters,
+                                     any_mode=any_mode)
+            return torch.stack([x for x in out if x is not None], dim=1)
+
+        ref = run()
+        cells = in_turns(lib, libs, entries, lambda: (
+            float((run() == ref).all(dim=1).float().mean()), cuda_ms(run),
+            kernel_device_ms(run, "broadphase_kernel")))
+        text = _cells_text(cells, lambda n, f, bk: (
+            f"{f[1]:.3f} / {bk[1]:.3f} ms, device {f[2]:.4f} / {bk[2]:.4f} "
+            "ms" + ("" if n == "tree" else f" (equal {f[0]:.6f})")))
+        log(f"  K5 {label} ({int(m.sum())} live of {m.shape[0]}): {text}; "
+            f"on {card}")
+
+
+def time_renders(lib, libs, card, samples: int, entries, padded, family):
     import torch
 
     from metal_raytracing_tpu_torch.renderer import Renderer
@@ -265,28 +382,27 @@ def time_renders(lib, libs, card, samples: int, entries, padded, flat):
     from metal_raytracing_tpu_torch.types import RenderConfig
     from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
 
+    flat = family == "flat"
     w, h = COATBALL if flat else (SIZE, SIZE)
     scene = get_scene("coatball" if flat else "dragon", w, h)
-    names = [None] + list(libs)
-    configs = ((("default config", {}),) if flat else
-               (("compaction=False", {}),
-                ("compaction=True fused_broadphase=True", FUSED)))
-    for label, kw in configs:
+    for label, kw in RENDERS[family]:
         r = Renderer(scene, RenderConfig(width=w, height=h, **kw),
                      device="cuda")
         r.render(1)
-        for name in names + names[::-1]:
-            with swapped_in(lib, entries, libs.get(name), name in padded):
-                r.render(1)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                r.render(samples)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) / samples * 1e3
-                prof = profile_renderer(r, 2)
+
+        def measure():
+            r.render(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(samples)
+            torch.cuda.synchronize()
+            return ((time.perf_counter() - t0) / samples * 1e3,
+                    profile_renderer(r, 2))
+
+        for name, (ms, prof) in in_turns(lib, libs, entries, measure, padded):
             top = ", ".join(f"{k[:24]} {v / prof.samples:.3f}"
                             for k, v, _ in prof.kernels[:3])
-            log(f"  {label}, {name or 'tree'}: {ms:.3f} ms/sample, device "
+            log(f"  {label}, {name}: {ms:.3f} ms/sample, device "
                 f"{prof.device_ms_per_sample:.3f} ms/sample ({top}); on "
                 f"{card}")
 
@@ -296,9 +412,15 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*", metavar="NAME=DIR")
-    ap.add_argument("--flat", action="store_true",
-                    help="K1/K2 on coatball 1024x768 (default: K3/K4 on "
-                    "dragon 1024x1024)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--flat", action="store_const", dest="family",
+                       const="flat", default="hier",
+                       help="K1/K2 on coatball 1024x768 (default: K3/K4 on "
+                       "dragon 1024x1024)")
+    which.add_argument("--rank", action="store_const", dest="family",
+                       const="rank", help="K6 on dragon's sorted passes")
+    which.add_argument("--broadphase", action="store_const", dest="family",
+                       const="broadphase", help="K5 in its four modes")
     ap.add_argument("--render", action="store_true",
                     help="also time the main path with each variant")
     ap.add_argument("--padded", action="append", default=[], metavar="NAME",
@@ -315,7 +437,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(card)
-    source, entries = FLAT if args.flat else HIER
+    source, entries = KERNELS[args.family]
     lib = _build.load_library()
     for line in _build.build_log.splitlines():
         if "Compiling" in line or "registers" in line or "spill" in line:
@@ -326,11 +448,17 @@ def main() -> int:
         ap.error(f"--padded names no variant: {sorted(padded - set(variants))}")
     libs = build_variants(variants, source)
     log("per pass, forwards / backwards:")
-    time_passes(lib, libs, card, entries, padded, args.flat)
+    if args.family == "rank":
+        time_rank(lib, libs, card, entries)
+    elif args.family == "broadphase":
+        time_broadphase(lib, libs, card, entries)
+    else:
+        time_passes(lib, libs, card, entries, padded,
+                    args.family == "flat")
     if args.render:
         log("main path, forwards then backwards:")
         time_renders(lib, libs, card, args.samples, entries, padded,
-                     args.flat)
+                     args.family)
     return 0
 
 

@@ -185,14 +185,16 @@ def test_broadphase_plain_matches_kernel(setup, mode):
 def test_broadphase_wrapper_runs_plain_version_on_cpu(setup):
     _, _, tdata, tspec, calls = setup
     o, d, mt, m = calls["any"][0]
-    before = BP.broadphase_keys.launches
+    counts = lambda: (BP.broadphase_keys.launches,
+                      BP.broadphase_keys.launches_clusters)
+    before = counts()
     got = BP.broadphase_keys(o, d, m, tdata.clu_planes, tdata.tri_planes,
                              tspec.bvh, max_t=mt, want2=True, any_mode=True)
     ref = BP.broadphase_ref(o, d, m, tdata.clu_planes, tdata.tri_planes,
                             tspec.bvh, max_t=mt, want2=True, any_mode=True)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    assert BP.broadphase_keys.launches == before
+    assert counts() == before
     assert BP.NC_SENT == TP._NC_SENT
     with pytest.raises(ValueError, match="max_t"):
         BP.broadphase_keys(o, d, m, tdata.clu_planes, tdata.tri_planes,

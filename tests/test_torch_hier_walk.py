@@ -41,14 +41,14 @@ from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
 from metal_raytracing_tpu_torch.ops import rank_cuda as RK
 from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 from metal_raytracing_tpu_torch.types import RenderConfig
-from torch_port_common import (MIN_MATCH, NEAR_TIE_REL, assert_near_ties,
-                               build_both, few_torch_threads,  # noqa: F401
-                               record_passes)
+from torch_port_common import (MIN_MATCH, NEAR_TIE_REL, STEP, WARP,
+                               assert_near_ties, build_both,
+                               few_torch_threads,  # noqa: F401
+                               model_closest, plane_hit_np, record_passes,
+                               step_planes, warp_groups)
 
 SIZES = {"coatball": (64, 48), "dragon": (32, 24)}
 LAYOUT = {"coatball": (8, 5), "dragon": (8, 43)}
-WARP = 32
-STEP = 64  # slots the warp tests in one step of the leaf service, two a lane
 PASSES = [("coatball", 0), ("coatball", 1), ("dragon", 0), ("dragon", 1)]
 IDS = [f"{scene}-bounce{b}" for scene, b in PASSES]
 
@@ -278,65 +278,11 @@ def test_ragged_ray_counts(scenes, n):
 
 
 # ---------------------------------------------------------------------------
-# The schedule: a numpy model of one warp's grouped leaf service
+# The schedule: a numpy model of one warp's grouped leaf service (its
+# closest half, model_closest, is in torch_port_common.py)
 # ---------------------------------------------------------------------------
 
 _F = np.float32
-_INIT = np.int32(TC._INIT_KEY)
-
-
-def _plane_hit_np(p, o, d):
-    """``plane_hit`` of ``csrc/trace_common.cuh`` in float32 numpy, op for
-    op: plane values p (12, L) of L lanes' slots against one ray."""
-    with np.errstate(all="ignore"):
-        den = p[0] * d[0] + p[1] * d[1] + p[2] * d[2]
-        rcp = _F(1.0) / den
-        rcp = rcp * (_F(2.0) - den * rcp)
-        t = (p[3] - (p[0] * o[0] + p[1] * o[1] + p[2] * o[2])) * rcp
-        px, py, pz = o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]
-        u = p[4] * px + p[5] * py + p[6] * pz + p[7]
-        v = p[8] * px + p[9] * py + p[10] * pz + p[11]
-        hit = (u >= 0) & (v >= 0) & (u + v <= _F(1.0)) & (t > _F(1e-6))
-    assert t.dtype == np.float32
-    return t, hit
-
-
-def _step_planes(tri, base, j0, count):
-    """The 32 lanes' plane values of step j0: lane l holds slots base + j0 +
-    l and base + j0 + 32 + l (columns l and 32 + l here), zeros (never hit)
-    past ``count``."""
-    p = np.zeros((12, STEP), np.float32)
-    width = min(STEP, count - j0)
-    p[:, :width] = tri[:, base + j0:base + j0 + width]
-    return p
-
-
-def _groups(req):
-    """The warp's requests grouped as the kernels do: the lowest requesting
-    lane leads, every lane with its cluster joins."""
-    pending = [lane for lane in range(len(req)) if req[lane] >= 0]
-    while pending:
-        c = req[pending[0]]
-        group = [lane for lane in pending if req[lane] == c]
-        pending = [lane for lane in pending if req[lane] != c]
-        yield int(c), group
-
-
-def _serve_closest(tri, base, count, o, d, group, steps):
-    """``serve_closest``: per ray of the group, the minimum over steps of
-    the lanes' minimum key (each lane the smaller of its two slots' keys,
-    then ``__reduce_min_sync``)."""
-    vkey = {lane: _INIT for lane in group}
-    for j0 in range(0, count, STEP):
-        p = _step_planes(tri, base, j0, count)
-        j = np.arange(j0, j0 + STEP, dtype=np.int32)
-        for lane in group:
-            t, hit = _plane_hit_np(p, o[lane], d[lane])
-            k = np.where(hit, (t.view(np.int32) & ~TC.IDX_MASK) | j, _INIT)
-            per_lane = np.minimum(k[:WARP], k[WARP:])
-            vkey[lane] = min(vkey[lane], per_lane.min())
-            steps[0] += 1
-    return vkey
 
 
 def _serve_any(tri, base, count, o, d, max_t, group, steps):
@@ -347,37 +293,13 @@ def _serve_any(tri, base, count, o, d, max_t, group, steps):
         group = [lane for lane in group if lane not in occluded]
         if not group:
             break
-        p = _step_planes(tri, base, j0, count)
+        p = step_planes(tri, base, j0, count)
         for lane in group:
-            t, hit = _plane_hit_np(p, o[lane], d[lane])
+            t, hit = plane_hit_np(p, o[lane], d[lane])
             if (hit & (t <= max_t[lane])).any():
                 occluded.add(lane)
             steps[0] += 1
     return occluded
-
-
-def model_closest(o, d, mask, seed, seed_base, tri, bvh, rounds):
-    """K3 as its warps run it, given each round's requests: returns (t, tri,
-    warp steps).  A step is 64 slots against one ray."""
-    n, c = o.shape[0], bvh.cluster_size
-    key = seed.copy()
-    base = (np.full(n, bvh.global_base, np.int32) if seed_base is None
-            else seed_base.copy())
-    steps = [0]
-    for req in rounds:
-        assert (req[~mask] < 0).all()
-        for w0 in range(0, n, WARP):
-            sl = slice(w0, min(n, w0 + WARP))
-            for cid, group in _groups(req[sl]):
-                vkey = _serve_closest(tri, cid * c, c, o[sl], d[sl], group,
-                                      steps)
-                for lane in group:
-                    if vkey[lane] < key[w0 + lane]:  # strictly smaller only
-                        key[w0 + lane] = vkey[lane]
-                        base[w0 + lane] = cid * c
-    t = (key & ~TC.IDX_MASK).view(np.float32)
-    tri_id = np.where(key < TC._MISS_KEY, base + (key & TC.IDX_MASK), -1)
-    return t, tri_id, steps[0]
 
 
 def model_any(o, d, max_t, mask, tri, bvh, rounds, g_slots=None):
@@ -400,7 +322,7 @@ def model_any(o, d, max_t, mask, tri, bvh, rounds, g_slots=None):
         assert (req[occ | ~mask] < 0).all()  # an occluded ray has left
         for w0 in range(0, n, WARP):
             sl = slice(w0, min(n, w0 + WARP))
-            for cid, group in _groups(req[sl]):
+            for cid, group in warp_groups(req[sl]):
                 hit = _serve_any(tri, cid * c, c, o[sl], d[sl], max_t[sl],
                                  group, steps)
                 occ[[w0 + lane for lane in hit]] = True
@@ -545,8 +467,8 @@ def test_cooperative_pick_is_the_lanes_own_pick(scenes, level):
 
 def test_groups_follow_the_lowest_requesting_lane():
     req = np.array([-1, 7, 3, 7, -1, 3, 9, 7])
-    assert list(_groups(req)) == [(7, [1, 3, 7]), (3, [2, 5]), (9, [6])]
-    assert list(_groups(np.full(32, -1))) == []
+    assert list(warp_groups(req)) == [(7, [1, 3, 7]), (3, [2, 5]), (9, [6])]
+    assert list(warp_groups(np.full(32, -1))) == []
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import torch
 from metal_raytracing_tpu.io import procedural as jproc
 from metal_raytracing_tpu.scenes import library as jlib
 from metal_raytracing_tpu_torch import renderer as R
+from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 from metal_raytracing_tpu_torch.scene import scene_data_from_reference
 
 
@@ -87,8 +88,6 @@ def assert_near_ties(o, d, tri, ref_tri, live, planes) -> int:
     """Every live ray whose two closest ids differ is a near-tie: both are
     hits, and their exact t agree within NEAR_TIE_REL.  Returns the number
     of such rays."""
-    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-
     bad = live & (tri != ref_tri)
     if bad.any():
         assert (tri[bad] >= 0).all() and (ref_tri[bad] >= 0).all()
@@ -116,3 +115,92 @@ def seeded_rays(n: int, seed: int, data, live: float = 0.85):
     return (torch.from_numpy(o.astype(np.float32)),
             torch.from_numpy(d.astype(np.float32)), torch.from_numpy(mask),
             torch.from_numpy(max_t.astype(np.float32)))
+
+
+# ---------------------------------------------------------------------------
+# The schedule: a numpy model of one warp's grouped leaf service (the
+# closest-hit kernels K1, K3 and K6 share it, csrc/trace_warp.cuh)
+# ---------------------------------------------------------------------------
+
+WARP = 32
+STEP = 64  # slots the warp tests in one step of the leaf service, two a lane
+_F = np.float32
+_INIT = np.int32(TC._INIT_KEY)
+
+
+def plane_hit_np(p, o, d):
+    """``plane_hit`` of ``csrc/trace_common.cuh`` in float32 numpy, op for
+    op: plane values p (12, L) of L lanes' slots against one ray."""
+    with np.errstate(all="ignore"):
+        den = p[0] * d[0] + p[1] * d[1] + p[2] * d[2]
+        rcp = _F(1.0) / den
+        rcp = rcp * (_F(2.0) - den * rcp)
+        t = (p[3] - (p[0] * o[0] + p[1] * o[1] + p[2] * o[2])) * rcp
+        px, py, pz = o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]
+        u = p[4] * px + p[5] * py + p[6] * pz + p[7]
+        v = p[8] * px + p[9] * py + p[10] * pz + p[11]
+        hit = (u >= 0) & (v >= 0) & (u + v <= _F(1.0)) & (t > _F(1e-6))
+    assert t.dtype == np.float32
+    return t, hit
+
+
+def step_planes(tri, base, j0, count):
+    """The 32 lanes' plane values of step j0: lane l holds slots base + j0 +
+    l and base + j0 + 32 + l (columns l and 32 + l here), zeros (never hit)
+    past ``count``."""
+    p = np.zeros((12, STEP), np.float32)
+    width = min(STEP, count - j0)
+    p[:, :width] = tri[:, base + j0:base + j0 + width]
+    return p
+
+
+def warp_groups(req):
+    """The warp's requests grouped as the kernels do: the lowest requesting
+    lane leads, every lane with its cluster joins."""
+    pending = [lane for lane in range(len(req)) if req[lane] >= 0]
+    while pending:
+        c = req[pending[0]]
+        group = [lane for lane in pending if req[lane] == c]
+        pending = [lane for lane in pending if req[lane] != c]
+        yield int(c), group
+
+
+def serve_closest_np(tri, base, count, o, d, group, steps):
+    """``serve_closest``: per ray of the group, the minimum over steps of
+    the lanes' minimum key (each lane the smaller of its two slots' keys,
+    then ``__reduce_min_sync``)."""
+    vkey = {lane: _INIT for lane in group}
+    for j0 in range(0, count, STEP):
+        p = step_planes(tri, base, j0, count)
+        j = np.arange(j0, j0 + STEP, dtype=np.int32)
+        for lane in group:
+            t, hit = plane_hit_np(p, o[lane], d[lane])
+            k = np.where(hit, (t.view(np.int32) & ~TC.IDX_MASK) | j, _INIT)
+            per_lane = np.minimum(k[:WARP], k[WARP:])
+            vkey[lane] = min(vkey[lane], per_lane.min())
+            steps[0] += 1
+    return vkey
+
+
+def model_closest(o, d, mask, seed, seed_base, tri, bvh, rounds):
+    """K1, K3 or K6 as its warps run it, given each round's requests:
+    returns (t, tri, warp steps).  A step is 64 slots against one ray."""
+    n, c = o.shape[0], bvh.cluster_size
+    key = seed.copy()
+    base = (np.full(n, bvh.global_base, np.int32) if seed_base is None
+            else seed_base.copy())
+    steps = [0]
+    for req in rounds:
+        assert (req[~mask] < 0).all()
+        for w0 in range(0, n, WARP):
+            sl = slice(w0, min(n, w0 + WARP))
+            for cid, group in warp_groups(req[sl]):
+                vkey = serve_closest_np(tri, cid * c, c, o[sl], d[sl],
+                                        group, steps)
+                for lane in group:
+                    if vkey[lane] < key[w0 + lane]:  # strictly smaller only
+                        key[w0 + lane] = vkey[lane]
+                        base[w0 + lane] = cid * c
+    t = (key & ~TC.IDX_MASK).view(np.float32)
+    tri_id = np.where(key < TC._MISS_KEY, base + (key & TC.IDX_MASK), -1)
+    return t, tri_id, steps[0]
