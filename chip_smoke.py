@@ -67,7 +67,20 @@ Phases, each of which raises (exit code != 0) on failure:
     rank_trace=2`` (through ``Renderer.render``), ``compaction=True,
     fused_broadphase=True``; launch counts per sample, each image against
     the first config's, and a profile of the third;
-13. a dragon cross-check at 128x128 with ``compaction=True, rank_trace=2``.
+13. a dragon cross-check at 128x128 with ``compaction=True, rank_trace=2``;
+14. the shading extensions on the scenes whose CLI turns one on (coatball
+    specular, bunny_env the environment map, glass_sphere refraction,
+    uv_test textures), through K1/K2, each scene at its own default size
+    with the CLI's config: one sample's K1/K2 passes (refracted rays from
+    inside the glass, Phong-lobe bounces) held bit for bit against the
+    walking plain versions on every ray, that sample's image through the
+    kernels equal to its image through the walking plain versions, and the
+    image against the brute-force plain versions' (``tracer="torch"``);
+    glass_sphere's ``compaction=True`` image against its
+    ``compaction=False`` one; then each scene with the CLI's config and
+    with the extensions off, in turns: ms/sample, launches of K1/K2 and of
+    all kernels a sample, device ms/sample (profiler) and the device's idle
+    share of the median and of the fastest round's wall.
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
 tables once) over 3.35 TB/s, the H100 SXM's published HBM rate, and its
@@ -108,6 +121,7 @@ from __future__ import annotations
 
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -131,6 +145,11 @@ SAME_IMAGE_RMSE = 1e-6
 SLICE = dict(compaction=True, rank_trace=2)
 ROUNDS = 2
 ROUND_SAMPLES = 3
+# The scenes whose CLI config turns a shading extension on, each at its own
+# default size (the scene constructors' defaults).
+EXTENSION_SCENES = (("coatball", COATBALL), ("bunny_env", (512, 512)),
+                    ("glass_sphere", (512, 512)), ("uv_test", (256, 256)))
+EXTENSION_ROUNDS = 4
 # H100 SXM HBM bytes/s (NVIDIA's data sheet); the FP32 issue rate is the
 # card's own, from fp32_issue_rate() (see the docstring).
 HBM_BYTES_PER_S = 3.35e12
@@ -314,9 +333,9 @@ def record_passes(renderer):
         calls["any"].append((o.clone(), d.clone(), mt.clone(), m.clone()))
         return any_hit(o, d, mt, m)
 
-    R.render_sample(renderer.data, renderer.spec, renderer.cfg,
-                    renderer.offsets, 0,
-                    tracers=(rec_closest, rec_any, rank and rec_rank))
+    calls["image"], _ = R.render_sample(
+        renderer.data, renderer.spec, renderer.cfg, renderer.offsets, 0,
+        tracers=(rec_closest, rec_any, rank and rec_rank))
     torch.cuda.synchronize()
     return calls
 
@@ -533,6 +552,27 @@ def walking_ref(spec):
         return TC.any_flat_walk_ref(o, d, mt, m, clu, tri, bvh, rounds=rounds)
 
     return closest, any_
+
+
+def walk_tracers(data, spec):
+    """``make_tracers``' (closest, any_hit) pair on the plain versions that
+    walk as the scene's kernels do."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops.intersect import Hit
+
+    walk_closest, walk_any = walking_ref(spec)
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+
+    def closest(o, d, m, seed, seed_base=None):
+        t, tri, _ = walk_closest(o, d, m, *tabs, seed, seed_base, rounds=None)
+        z = torch.zeros_like(t)
+        return Hit(t=t, u=z, v=z, tri=tri)
+
+    def any_hit(o, d, mt, m):
+        return walk_any(o, d, mt, m, *tabs, rounds=None)[0]
+
+    return closest, any_hit
 
 
 def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
@@ -1028,6 +1068,128 @@ def cross_check(scene, size, spp, **cfg_kw):
     assert err < IMAGE_RMSE, err
 
 
+def cli_config(name, size):
+    """(scene, the CLI's config for it at ``size``, the same with every
+    shading extension off)."""
+    from metal_raytracing_tpu_torch.cli import build_parser, render_config
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    w, h = size
+    scene = get_scene(name, w, h)
+    args = build_parser().parse_args(["render", "--scene", name, "--size",
+                                      f"{w}x{h}"])
+    return scene, render_config(args, scene), RenderConfig(width=w, height=h)
+
+
+def extension_scenes(card):
+    """Phase 14; returns the K1/K2 launches of the extension scenes' timed
+    runs with their extensions on, and the samples of those runs."""
+    import dataclasses
+
+    import torch
+
+    from metal_raytracing_tpu_torch import renderer as R
+    from metal_raytracing_tpu_torch.io.image import rmse
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
+
+    # The walking plain versions visit the clusters in the kernels' order,
+    # so the kernels' passes and image equal theirs bit for bit.  The
+    # brute-force plain versions break an exact tie between two clusters
+    # in their own order (phase 2 meets one such ray on coatball's primary
+    # pass), so their image is held at the image gate.
+    for name, size in EXTENSION_SCENES:
+        scene, cfg, _ = cli_config(name, size)
+        r = Renderer(scene, cfg, device="cuda")
+        assert TC._use_flat(r.spec.bvh), name
+        on = sorted(f for f in ("enable_specular", "env_map",
+                                "enable_textures", "enable_refraction")
+                    if getattr(cfg, f))
+        assert on, name
+        log(f"  {name} {size[0]}x{size[1]} {on}, one sample's passes vs the "
+            f"walking plain versions:")
+        calls = record_passes(r)
+        for b, args in enumerate(calls["closest"]):
+            check_walk_closest(f"K1 closest bounce {b}", args, r.data, r.spec)
+        for b, args in enumerate(calls["any"]):
+            check_walk_any(f"K2 any bounce {b}", args, r.data, r.spec)
+        walked, _ = R.render_sample(r.data, r.spec, r.cfg, r.offsets, 0,
+                                    tracers=(*walk_tracers(r.data, r.spec),
+                                             None))
+        same = bool(torch.equal(calls["image"], walked))
+        log(f"    sample through the kernels equal to the sample through "
+            f"the walking plain versions: {same}")
+        assert same, name
+        del calls, walked, r
+        imgs = [Renderer(scene, dataclasses.replace(cfg, tracer=t),
+                         device="cuda").render(1) for t in ("cuda", "torch")]
+        err = rmse(imgs[0], imgs[1])
+        worst = float(np.abs(imgs[0] - imgs[1]).max())
+        n_px = int((np.abs(imgs[0] - imgs[1]).max(axis=-1) > 0).sum())
+        log(f"    1 spp: RMSE cuda vs torch tracer {err:.3e} (gate < "
+            f"{IMAGE_RMSE}), max {worst:.3e}, {n_px} pixels differ")
+        assert err < IMAGE_RMSE, (name, err)
+        torch.cuda.empty_cache()
+    scene, cfg, _ = cli_config("glass_sphere", dict(EXTENSION_SCENES)[
+        "glass_sphere"])
+    imgs = [Renderer(scene, dataclasses.replace(cfg, compaction=c),
+                     device="cuda").render(2) for c in (False, True)]
+    err = rmse(imgs[0], imgs[1])
+    log(f"  glass_sphere refraction 2 spp: RMSE compaction=True vs False "
+        f"{err:.3e} (gate < {SAME_IMAGE_RMSE})")
+    assert err < SAME_IMAGE_RMSE, err
+
+    launches = {"K1": 0, "K2": 0}
+    samples = 0
+    log(f"  each scene at its default size, extensions off / on in turns, "
+        f"{EXTENSION_ROUNDS} rounds of {ROUND_SAMPLES} samples, on {card}:")
+    for name, size in EXTENSION_SCENES:
+        scene, cfg, off = cli_config(name, size)
+        rs = {"off": Renderer(scene, off, device="cuda"),
+              "on": Renderer(scene, cfg, device="cuda")}
+        for r in rs.values():  # warm-up
+            r.render(1)
+        ms = {k: [] for k in rs}
+        counts = {}
+        for _ in range(EXTENSION_ROUNDS):
+            for k, r in rs.items():
+                TC.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.render(ROUND_SAMPLES)
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) / ROUND_SAMPLES * 1e3)
+                counts[k] = launch_counts()
+                if k == "on":
+                    launches["K1"] += counts[k]["closest_flat"]
+                    launches["K2"] += counts[k]["any_flat"]
+                    samples += ROUND_SAMPLES
+        for k, r in rs.items():
+            img = r.image
+            assert img.shape == (size[1], size[0], 3), img.shape
+            assert bool(np.isfinite(img).all()) and float(img.min()) >= 0.0
+            assert float(img.max()) > 0.01, (name, k)
+            c = counts[k]
+            assert c["closest_flat"] >= 3 * ROUND_SAMPLES, (name, k, c)
+            assert c["any_flat"] >= 3 * ROUND_SAMPLES, (name, k, c)
+            prof = profile_renderer(r, 2)
+            dev = prof.device_ms_per_sample
+            log(f"    {name} {size[0]}x{size[1]} {k}: "
+                + " / ".join(f"{m:.3f}" for m in ms[k])
+                + f" ms/sample (median {statistics.median(ms[k]):.3f}); K1 "
+                f"{c['closest_flat'] / ROUND_SAMPLES:.0f} K2 "
+                f"{c['any_flat'] / ROUND_SAMPLES:.0f} launches/sample; "
+                f"device {dev:.3f} ms/sample in "
+                f"{prof.launches // prof.samples} kernels/sample; idle "
+                f"{1 - dev / statistics.median(ms[k]):.3f} of the median "
+                f"round, {1 - dev / min(ms[k]):.3f} of the fastest")
+        del rs
+        torch.cuda.empty_cache()
+    return launches, samples
+
+
 def main() -> int:
     import torch
 
@@ -1267,6 +1429,13 @@ def main() -> int:
     # ---- phase 13: the slice's image through the kernels vs plain versions
     log("phase 13: dragon cross-check, compaction=True rank_trace=2")
     cross_check("dragon", (128, 128), 1, **SLICE)
+
+    # ---- phase 14: the shading extensions through K1/K2
+    log("phase 14: the shading extensions (coatball, bunny_env, "
+        "glass_sphere, uv_test) through K1/K2")
+    ext_launches, ext_samples = extension_scenes(card)
+    log(f"  K1/K2 launches with the extensions on over {ext_samples} "
+        f"samples: {ext_launches}")
 
     kernels = []
     modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries

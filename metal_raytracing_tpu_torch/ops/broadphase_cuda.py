@@ -104,7 +104,7 @@ def broadphase_ref(o, d, mask, clu, tri, spec: BVHSpec, max_t=None,
         key1 = torch.full((n,), NC_SENT, dtype=torch.int32, device=dev)
         key2 = torch.full_like(key1, NC_SENT) if want2 else None
         cid = torch.arange(boxes.shape[0], dtype=torch.int32, device=dev)
-        for s, e in _ray_chunks(n, boxes.shape[0]):
+        for s, e in _ray_chunks(n, boxes.shape[0], dev):
             tn, hit = slab_entry(o[s:e], d[s:e], boxes,
                                  max_t[s:e] if any_mode else None)
             key = (tn.view(torch.int32) & ~NC_IDM) | cid[None, :]

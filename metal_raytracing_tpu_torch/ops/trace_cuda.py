@@ -68,8 +68,10 @@ _MISS_KEY = int(np.float32(BIG_T).view(np.int32)) & ~IDX_MASK
 _INIT_KEY = _MISS_KEY | IDX_MASK
 
 # Elements per (rays x triangles) temporary in the plain versions: 16 MB of
-# float32, so a full-frame call stays small on the card and on the host.
+# float32 on the card, so a full-frame call stays small; 2 MB on the host,
+# where a temporary that stays in a core's cache streams faster.
 _REF_CHUNK_ELEMS = 1 << 22
+_REF_CHUNK_ELEMS_HOST = 1 << 19
 # Elements of one gathered (12, rays, cluster_size) plane block of the
 # walking plain versions and of the rank walk's: 64 MB of float32.
 _REF_GATHER_ELEMS = 1 << 24
@@ -253,8 +255,10 @@ def _plane_hits(o, d, rows):
     return t, hit
 
 
-def _ray_chunks(n: int, width: int):
-    step = max(1, _REF_CHUNK_ELEMS // max(width, 1))
+def _ray_chunks(n: int, width: int, device):
+    elems = (_REF_CHUNK_ELEMS if torch.device(device).type == "cuda"
+             else _REF_CHUNK_ELEMS_HOST)
+    step = max(1, elems // max(width, 1))
     for s in range(0, n, step):
         yield s, min(n, s + step)
 
@@ -286,7 +290,7 @@ def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None,
     rows = tri[:, :nc * c]
     lane = torch.arange(c, dtype=torch.int32, device=dev).repeat(nc)
     live = mask.nonzero()[:, 0]  # a dead ray keeps its seed
-    for s, e in _ray_chunks(live.shape[0], nc * c):
+    for s, e in _ray_chunks(live.shape[0], nc * c, dev):
         r = live[s:e]
         t, hit = _plane_hits(o[r], d[r], rows)
         key = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
@@ -309,7 +313,8 @@ def any_flat_ref(o, d, max_t, mask, tri, spec: BVHSpec):
     (ROADMAP.md, Queue 3).  Returns (N,) bool."""
     occ = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
     live = mask.nonzero()[:, 0]
-    for s, e in _ray_chunks(live.shape[0], spec.padded_triangles):
+    for s, e in _ray_chunks(live.shape[0], spec.padded_triangles,
+                            o.device):
         r = live[s:e]
         t, hit = _plane_hits(o[r], d[r], tri)
         occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)
@@ -446,7 +451,7 @@ def _walk_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, g_slots: int,
     visits = torch.zeros((n,), dtype=torch.int32, device=dev)
     live = mask.nonzero()[:, 0]
     gb = spec.global_base
-    for s, e in _ray_chunks(live.shape[0], g_slots):
+    for s, e in _ray_chunks(live.shape[0], g_slots, dev):
         r = live[s:e]
         t, hit = _plane_hits(o[r], d[r], tri[:, gb:gb + g_slots])
         occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)

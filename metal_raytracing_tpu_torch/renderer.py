@@ -17,8 +17,12 @@ hierarchical kernel as its fallback.  All of that is a permutation of the
 rays plus exact shortcuts: the image is unchanged.  The reference's
 multi-operand ``lax.sort`` is one ``torch.sort`` of the key and a gather of
 the per-ray state by its permutation.  Nothing on the path waits for the
-device.  The shading extensions (specular, emission, environment map,
-textures, refraction) are not ported yet.
+device.
+
+The shading extensions of the JAX package (environment map, emission,
+textures, a specular Phong lobe, refraction; ``RenderConfig``) are plain
+PyTorch between the trace passes, in the JAX package's order and on its
+Halton dimensions, and each is off unless its flag is set.
 
 Both tracers of the port, the CUDA kernels and their plain PyTorch
 versions, return the packed key's chopped hit distance, so the renderer
@@ -65,6 +69,52 @@ def make_pixel_offsets(cfg: RenderConfig, device="cpu") -> torch.Tensor:
 
 def _normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v / torch.clamp(sampling.norm(v), min=eps)
+
+
+def _env_lookup(env: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Nearest sample of a lat-long environment map along unit directions
+    (``metal_raytracing_tpu.renderer._env_lookup``)."""
+    he, we = env.shape[0], env.shape[1]
+    u = torch.atan2(d[:, 0], -d[:, 2]) / (2.0 * math.pi) + 0.5
+    v = torch.acos(torch.clamp(d[:, 1], -1.0, 1.0)) / math.pi
+    xi = torch.clamp((u * we).to(torch.int32), 0, we - 1)
+    yi = torch.clamp((v * he).to(torch.int32), 0, he - 1)
+    return env[yi.long(), xi.long()]
+
+
+def _texel(data: SceneData, mid: torch.Tensor, u: torch.Tensor,
+           v: torch.Tensor, bilinear: bool) -> torch.Tensor:
+    """(N, 3) texel of material ``mid`` (int64) at texcoords (u, v): wrap
+    at the UV square, OBJ's bottom-left origin (v flipped), clamp at the
+    texel grid; nearest, or bilinear about texel centres (the JAX
+    package's texture extension)."""
+    fu = u - torch.floor(u)
+    fv = v - torch.floor(v)
+    hw = data.tex_hw[mid]  # (N, 2)
+    hmax, wmax = hw[:, 0] - 1, hw[:, 1] - 1
+
+    def at(yi, xi):
+        return data.tex_stack[mid, yi.long(), xi.long()]
+
+    def clip(i, hi):
+        return torch.minimum(torch.clamp(i, min=0), hi)
+
+    if not bilinear:
+        xi = clip((fu * hw[:, 1]).to(torch.int32), wmax)
+        yi = clip(((1.0 - fv) * hw[:, 0]).to(torch.int32), hmax)
+        return at(yi, xi)
+    # sample at (u W - 0.5, v H - 0.5) and lerp the 2x2 neighbourhood
+    x = fu * hw[:, 1] - 0.5
+    y = (1.0 - fv) * hw[:, 0] - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = (x - x0)[:, None]
+    wy = (y - y0)[:, None]
+    x0i, y0i = x0.to(torch.int32), y0.to(torch.int32)
+    x1i, y1i = clip(x0i + 1, wmax), clip(y0i + 1, hmax)
+    x0i, y0i = clip(x0i, wmax), clip(y0i, hmax)
+    return ((at(y0i, x0i) * (1 - wx) + at(y0i, x1i) * wx) * (1 - wy)
+            + (at(y1i, x0i) * (1 - wx) + at(y1i, x1i) * wx) * wy)
 
 
 def resolve_tracer(cfg: RenderConfig, device) -> str:
@@ -267,6 +317,8 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             "compaction=False")
     fused_keys = cfg.fused_broadphase and nc_tot <= BROADPHASE_MAX_CLUSTERS
     shadow_key_from = _from_end(cfg.shadow_hit_key_from, cfg.max_bounces)
+    shade_ext = (cfg.enable_specular or cfg.enable_emission
+                 or cfg.enable_textures or cfg.enable_refraction)
 
     px = torch.nn.functional.pad(px, (0, pad))
     py = torch.nn.functional.pad(py, (0, pad))
@@ -313,8 +365,10 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     def pair_at(bounce: int) -> bool:
         """Does ``bounce_tail(bounce)`` take its shadow key and the next
         bounce's sort keys from one ``nearest_cluster_pair`` sweep?  Only
-        where both use the exact broad phase over the shared origin."""
+        where both use the exact broad phase over the shared origin, which
+        refraction breaks (a refracted ray starts inside the surface)."""
         return (cfg.pair_broadphase and not fused_keys
+                and not cfg.enable_refraction
                 and cfg.sort_key == "cluster2" and bounce < shadow_key_from
                 and shadow_sorts_at(bounce) and bounce + 1 < cfg.max_bounces
                 and sorts_at(bounce + 1) and cfg.sort_bounces)
@@ -466,6 +520,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         Returns the per-ray state and the next bounce's carried keys (None
         unless :func:`pair_at`)."""
         stats["closest_rays"] += alive.sum()
+        mats = data.materials
         # The closest pass is always seeded on the host side: the port's
         # kernels have no in-kernel global-set test.
         m_kernel = alive
@@ -500,9 +555,15 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                           gfound,
                           bvh.global_base + (gkey & trace_cuda.IDX_MASK),
                           hit.tri))
+        if cfg.env_map and spec.has_env_map:
+            escaped = alive & ~hit.found
+            accum = accum + torch.where(escaped[:, None],
+                                        color * _env_lookup(data.env_map, d),
+                                        0.0)
         alive = alive & hit.found  # the megakernel's break on miss (:246-247)
         tri = hit.tri.clamp(min=0)
         row = data.shade_table[tri.long()]
+        mid = row[:, 15].long() if shade_ext else None  # hit material
 
         # Exact hit distance from the winner's plane [n, n.v0] in the shade
         # row: t = (n.v0 - n.o) / (n.d); the tracer's t is chopped.
@@ -519,6 +580,18 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
               + row[:, 6:9] * pos[:, 2:3] + row[:, 9:12])
         ns = _normalize(ns)
         base_color = row[:, 12:15]
+        if cfg.enable_textures and spec.has_textures:
+            # uv(p) = A p + b from the triangle's affine UV row
+            uvrow = data.uv_table[tri.long()]
+            u_t = (uvrow[:, 0] * pos[:, 0] + uvrow[:, 2] * pos[:, 1]
+                   + uvrow[:, 4] * pos[:, 2] + uvrow[:, 6])
+            v_t = (uvrow[:, 1] * pos[:, 0] + uvrow[:, 3] * pos[:, 1]
+                   + uvrow[:, 5] * pos[:, 2] + uvrow[:, 7])
+            base_color = base_color * _texel(
+                data, mid, u_t, v_t, cfg.texture_filter == "bilinear")
+        if cfg.enable_emission:
+            accum = accum + torch.where(alive[:, None],
+                                        color * mats.emission[mid], 0.0)
 
         # One uniformly random light per ray (reference: :272-275).
         lu = sampling.halton(idx, sampling.bounce_dim(bounce, 0))
@@ -555,14 +628,88 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             g_occ = torch.zeros_like(do_shadow)
         kernel_shadow = do_shadow & ~g_occ
 
-        # Cosine-weighted diffuse bounce (reference: :384-391), before the
-        # shadow trace: the next direction feeds the pair sweep.  The next
-        # origin is the shadow origin, bit for bit.
+        # The bounce continuation (reference: :384-391, a cosine-weighted
+        # diffuse bounce), before the shadow trace: the next direction
+        # feeds the pair sweep.  Without refraction the next origin is the
+        # shadow origin, bit for bit.
         r_bounce = torch.stack(
             [sampling.halton(idx, sampling.bounce_dim(bounce, 3)),
              sampling.halton(idx, sampling.bounce_dim(bounce, 4))], dim=-1)
         local = sampling.sample_cosine_weighted_hemisphere(r_bounce)
         d_next = sampling.align_hemisphere_with_normal(local, ns)
+        color_next, o_next, nee_w = dcolor, shadow_o, None
+        # The extensions' Halton dimensions lie past the reference's
+        # schedule, so the shared ones keep their values.
+        ext_dim = 2 + 5 * cfg.max_bounces + bounce
+        if cfg.enable_specular:
+            # per ray, the diffuse lobe or a Phong lobe about the mirror
+            # direction, chosen by Ks against Kd
+            spec_color = mats.specular[mid]
+            shininess = mats.specular_exponent[mid][:, None]
+            kd_max = base_color.amax(dim=-1)
+            ks_max = spec_color.amax(dim=-1)
+            p_spec = ks_max / torch.clamp(kd_max + ks_max, min=1e-6)
+            take_spec = (alive & (sampling.halton(idx, ext_dim) < p_spec)
+                         & (ks_max > 0.0))
+            refl = d - 2.0 * (d * ns).sum(-1, keepdim=True) * ns
+            cos_a = r_bounce[:, 1:2] ** (1.0 / (shininess + 1.0))
+            sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+            phi = 2.0 * math.pi * r_bounce[:, 0:1]
+            lobe = torch.cat([sin_a * torch.cos(phi), cos_a,
+                              sin_a * torch.sin(phi)], dim=-1)
+            d_spec = sampling.align_hemisphere_with_normal(lobe, refl)
+            # keep specular samples above the surface
+            below = (d_spec * ns).sum(-1, keepdim=True) <= 0.0
+            d_spec = torch.where(below, refl, d_spec)
+            p_spec_c = torch.clamp(p_spec, 1e-6, 1.0 - 1e-6)[:, None]
+            spec_tp = color * spec_color / p_spec_c
+            diff_tp = torch.where(alive[:, None],
+                                  color * base_color / (1.0 - p_spec_c),
+                                  color)
+            d_next = torch.where(take_spec[:, None], d_spec, d_next)
+            color_next = torch.where(take_spec[:, None], spec_tp, diff_tp)
+        if cfg.enable_refraction:
+            # A dielectric (dissolve < 1, Ni > 0) transmits with
+            # probability 1 - dissolve by Snell, reflecting by Schlick's
+            # Fresnel or total internal reflection, on the side-aware
+            # normal; its diffuse layer, this vertex's light sample
+            # included, carries the dissolve share.  Shadow rays still
+            # take glass as an occluder (as in the JAX package).
+            ni_r = mats.refraction_index[mid]
+            dvis = mats.dissolve[mid]
+            transmissive = alive & (dvis < 1.0) & (ni_r > 0.0)
+            nee_w = torch.where(transmissive, dvis, 1.0)[:, None]
+            take_t = transmissive & (
+                sampling.halton(idx, ext_dim + cfg.max_bounces) >= dvis)
+            inside = (d * ns).sum(-1) > 0.0  # a back-face hit
+            n_eff = torch.where(inside[:, None], -ns, ns)
+            ci = torch.clamp(-(d * n_eff).sum(-1), 0.0, 1.0)
+            ni_s = torch.clamp(ni_r, min=1.0 + 1e-6)
+            eta = torch.where(inside, ni_s, 1.0 / ni_s)
+            sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
+            tir = sin2_t > 1.0
+            cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+            d_refr = _normalize(eta[:, None] * d
+                                + (eta * ci - cos_t)[:, None] * n_eff)
+            d_refl = _normalize(d + 2.0 * ci[:, None] * n_eff)
+            f0 = ((ni_s - 1.0) / (ni_s + 1.0)) ** 2
+            c1 = 1.0 - ci
+            c2 = c1 * c1  # (1 - ci)^5 by the JAX package's integer power
+            fr = torch.where(tir, 1.0, f0 + (1.0 - f0) * (c1 * (c2 * c2)))
+            refl_t = sampling.halton(idx, ext_dim + 2 * cfg.max_bounces) < fr
+            d_next = torch.where(
+                take_t[:, None],
+                torch.where(refl_t[:, None], d_refl, d_refr), d_next)
+            # glass is tinted by Kd where it has one ("clear" otherwise)
+            tint = torch.where(base_color.amax(dim=-1, keepdim=True) > 1e-4,
+                               base_color, 1.0)
+            t_tp = torch.where(alive[:, None], color * tint, color)
+            color_next = torch.where(take_t[:, None], t_tp, color_next)
+            # a refracted ray goes on through the surface
+            off_n = torch.where(take_t[:, None],
+                                torch.where(refl_t[:, None], n_eff, -n_eff),
+                                ns)
+            o_next = pos + off_n * 1e-3
 
         pair_scid = pair_bp = None
         if pair_at(bounce):
@@ -576,9 +723,10 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         occluded = shadow_trace(bounce, shadow_o, ls.direction, sdist,
                                 light_idx, tri, kernel_shadow, sk1, pair_scid)
         visible = do_shadow & ~occluded & ~g_occ
-        accum = accum + torch.where(visible[:, None], lcolor * dcolor,
+        nee = lcolor * dcolor if nee_w is None else lcolor * dcolor * nee_w
+        accum = accum + torch.where(visible[:, None], nee,
                                     torch.zeros_like(accum))  # :371-373
-        return shadow_o, d_next, dcolor, accum, alive, pair_bp
+        return o_next, d_next, color_next, accum, alive, pair_bp
 
     carried_bp = None
     for bounce in range(cfg.max_bounces):

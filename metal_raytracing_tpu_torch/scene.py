@@ -7,8 +7,8 @@ the kernel layouts (cluster boxes, triangle planes, shade rows) are packed
 with PyTorch on the CPU, then moved to the requested device, so a scene's
 tables are the same bits on every device.
 
-Not ported yet (ROADMAP.md): textured materials and the ``max_edge_frac``
-subdivision raise ``NotImplementedError``.
+Not ported yet (ROADMAP.md): the ``max_edge_frac`` subdivision raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import accel, math_utils
+from .assets import load_texture
 from .io.obj import LoadedModel
 from .ops.trace_cuda import fma, pack_scene_planes
 from .types import (Camera, Light, LightTable, Material, MaterialTable,
@@ -65,6 +66,13 @@ class SceneData:
     tri_src: torch.Tensor  # (T,) i32 leaf slot -> source triangle (-1 pad)
     clu_counts: torch.Tensor  # (NS*S,) i32 real triangles per cluster slot
     env_map: Optional[torch.Tensor] = None  # (He, We, 3) f32 or None
+    # Texture extension (None when no material has a texture): per-triangle
+    # affine UV rows uv(p) = A p + b packed [A00 A10 A01 A11 A02 A12 b0 b1],
+    # the materials' images padded to common dims (an untextured material
+    # is 1x1 white), and each material's (h, w).
+    uv_table: Optional[torch.Tensor] = None  # (T, 8) f32
+    tex_stack: Optional[torch.Tensor] = None  # (M, Hm, Wm, 3) f32
+    tex_hw: Optional[torch.Tensor] = None  # (M, 2) i32
 
     @property
     def device(self) -> torch.device:
@@ -162,20 +170,52 @@ def _shade_table(geometry: GeometryTable, tri: torch.Tensor,
                                tri[0:4].T], dim=1)
 
 
+def _pack_uv_table(uvc: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """(T, 3, 2) per-corner texcoords -> (T, 8) affine rows uv(p) = A p + b
+    by the shade table's plane substitution: A[:, j] = du U[j] + dv V[j],
+    b = uv0 + uw du + vw dv (``metal_raytracing_tpu.scene._pack_uv_table``,
+    with its build's fused multiply-adds)."""
+    uv0 = uvc[:, 0]
+    du = uvc[:, 1] - uv0  # (T, 2)
+    dv = uvc[:, 2] - uv0
+    uvec, uw = tri[4:7].T, tri[7][:, None]
+    vvec, vw = tri[8:11].T, tri[11][:, None]
+    cols = [fma(du, uvec[:, j:j + 1], dv * vvec[:, j:j + 1])
+            for j in range(3)]
+    b = fma(vw, dv, fma(uw, du, uv0))
+    return torch.cat(cols + [b], dim=1)
+
+
+def _pack_textures(materials: Sequence[Material]):
+    """(tex_stack (M, Hm, Wm, 3) f32, tex_hw (M, 2) i32) of the materials'
+    textures, each image at the top left of its slot."""
+    images = [load_texture(m.texture) if m.texture
+              else np.ones((1, 1, 3), np.float32) for m in materials]
+    hm = max(im.shape[0] for im in images)
+    wm = max(im.shape[1] for im in images)
+    stack = np.zeros((len(images), hm, wm, 3), np.float32)
+    for i, im in enumerate(images):
+        stack[i, :im.shape[0], :im.shape[1]] = im
+    hw = np.array([im.shape[:2] for im in images], np.int32)
+    return torch.from_numpy(stack), torch.from_numpy(hw)
+
+
 def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
                      camera: Camera, cluster_size: int = 384,
                      branching: int = 8, env_map: Optional[np.ndarray] = None,
                      max_edge_frac: float = 0.0, builder: str = "sah_free", *,
                      device) -> Tuple[SceneData, SceneSpec]:
     """Flatten, cluster and pack a scene onto ``device``."""
-    v0, e1, e2, n0, n1, n2, mid, materials, _uvc = flatten_instances(
+    v0, e1, e2, n0, n1, n2, mid, materials, uvc = flatten_instances(
         instances)
+    has_textures = any(m.texture for m in materials)
     if max_edge_frac:
+        if has_textures:  # as the JAX package refuses it
+            raise ValueError(
+                "max_edge_frac subdivision drops per-corner texcoords but "
+                "this scene has textured materials")
         raise NotImplementedError(
             "max_edge_frac subdivision is not ported (ROADMAP.md)")
-    if any(m.texture for m in materials):
-        raise NotImplementedError(
-            "textured materials are not ported yet (ROADMAP.md)")
     order, node_lo, node_hi, bvh_spec = accel.build_cluster_bvh(
         v0, e1, e2, cluster_size=cluster_size, branching=branching,
         builder=builder)
@@ -200,8 +240,12 @@ def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
     nc, c = bvh_spec.num_clusters, bvh_spec.cluster_size
     clu_counts = np.zeros((clu.shape[0] * clu.shape[1],), np.int32)
     clu_counts[:nc] = (order[:nc * c].reshape(nc, c) >= 0).sum(1)
+    uv_table = tex_stack = tex_hw = None
+    if has_textures:
+        uv_table = _pack_uv_table(permute(uvc), tri)
+        tex_stack, tex_hw = _pack_textures(materials)
 
-    to = lambda x: x.to(device)
+    to = lambda x: None if x is None else x.to(device)
     data = SceneData(
         geometry=GeometryTable(*(to(getattr(geometry, f.name))
                                  for f in dataclasses.fields(geometry))),
@@ -213,10 +257,12 @@ def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
         tri_src=to(torch.from_numpy(order.astype(np.int32))),
         clu_counts=to(torch.from_numpy(clu_counts)),
         env_map=(None if env_map is None
-                 else to(torch.from_numpy(np.asarray(env_map, np.float32)))))
+                 else to(torch.from_numpy(np.asarray(env_map, np.float32)))),
+        uv_table=to(uv_table), tex_stack=to(tex_stack), tex_hw=to(tex_hw))
     spec = SceneSpec(bvh=bvh_spec, light_count=light_table.count,
                      material_count=material_table.count,
-                     has_env_map=env_map is not None)
+                     has_env_map=env_map is not None,
+                     has_textures=has_textures)
     return data, spec
 
 
@@ -247,6 +293,9 @@ def scene_data_from_reference(arrays: Dict[str, np.ndarray], spec,
     def t(key: str) -> torch.Tensor:
         return torch.from_numpy(np.array(arrays[key])).to(device)
 
+    def opt(key: str) -> Optional[torch.Tensor]:
+        return t(key) if key in arrays else None
+
     def table(cls, prefix: str):
         return cls(*(t(f"{prefix}.{f.name}") for f in dataclasses.fields(cls)))
 
@@ -259,7 +308,8 @@ def scene_data_from_reference(arrays: Dict[str, np.ndarray], spec,
         sup_planes=t("sup_planes"), clu_planes=t("clu_planes"),
         tri_planes=t("tri_planes"), shade_table=t("shade_table"),
         tri_src=t("tri_src"), clu_counts=t("clu_counts"),
-        env_map=t("env_map") if "env_map" in arrays else None)
+        env_map=opt("env_map"), uv_table=opt("uv_table"),
+        tex_stack=opt("tex_stack"), tex_hw=opt("tex_hw"))
     bvh = accel.BVHSpec(**{f.name: getattr(spec.bvh, f.name)
                            for f in dataclasses.fields(accel.BVHSpec)})
     port_spec = SceneSpec(bvh=bvh, light_count=int(spec.light_count),

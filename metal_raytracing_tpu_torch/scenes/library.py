@@ -2,10 +2,9 @@
 config ladder (plane+sphere, teapot, bunny+HDR, dragon, coatball).
 
 The port's copy of ``metal_raytracing_tpu.scenes.library``: the same seven
-constructors build the same scenes.  The port renders every scene but
-uv_test (textures are not ported; ROADMAP.md) on the GPU: dragon, with 344
-clusters, through the hierarchical kernels, the others through the flat
-ones."""
+constructors build the same scenes.  The port renders every scene on the
+GPU: dragon, with 344 clusters, through the hierarchical kernels, the others
+through the flat ones."""
 
 from __future__ import annotations
 
@@ -69,8 +68,8 @@ def uv_test_scene(width: int = 256, height: int = 256) -> Scene:
     When the real ``uv_test.obj`` resolves from disk its material carries
     no texture (the exporter's .mtl is absent), so the sibling
     ``uv_test.png`` is attached to every material; the procedural quad
-    stand-in comes with a checkerboard already attached.  Textures are not
-    ported yet, so building this scene raises ``NotImplementedError``."""
+    stand-in comes with a checkerboard already attached.  Render with
+    ``--textures`` / ``enable_textures=True``."""
     import dataclasses
     import os
 

@@ -6,11 +6,11 @@ and material records the renderer reads, as dataclasses of ``torch.Tensor``
 stores as arrays of structs (lights, materials) stay structs of arrays.
 
 ``RenderConfig`` carries only the fields the port implements.  A knob of the
-JAX package's config that the port lacks (``enable_specular``,
-``sort_primary``, ``live_widths``, ...) is a ``TypeError`` at construction
-rather than a silent no-op, and a value the port does not carry for a knob
-it has (a ``sort_key`` layout, a ``rank_trace`` depth) a ``ValueError``;
-ROADMAP.md lists what is still to port.
+JAX package's config that the port lacks (``sort_primary``, ``live_widths``,
+...) is a ``TypeError`` at construction rather than a silent no-op, and a
+value the port does not carry for a knob it has (a ``sort_key`` layout, a
+``rank_trace`` depth, a ``texture_filter``) a ``ValueError``; ROADMAP.md
+lists what is still to port.
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ class Material:
     refraction_index: float = 0.0
     dissolve: float = 1.0
     name: str = ""
-    texture: str = ""  # textures are not ported yet (ROADMAP.md)
+    texture: str = ""  # assets.load_texture spec: a path or "checker:N"
 
 
 @dataclasses.dataclass
@@ -191,6 +191,7 @@ def pack_materials(materials: Sequence[Material]) -> MaterialTable:
 
 TRACERS = ("auto", "cuda", "torch")
 SORT_KEYS = ("cluster2", "cluster1")
+TEXTURE_FILTERS = ("nearest", "bilinear")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +237,17 @@ class RenderConfig:
     is silently off on flat scenes and wherever the sort emits no rank keys
     (as in the JAX package).
 
+    The shading extensions go beyond the reference's diffuse shading, each
+    as in the JAX package: ``enable_specular`` picks per ray between the
+    diffuse lobe and a Phong lobe about the mirror direction (Ks/Ns),
+    ``enable_emission`` adds the hit material's Ke, ``env_map`` lights
+    escaped rays from the scene's lat-long map, ``enable_textures``
+    modulates the albedo by the material's texture (``texture_filter``
+    ``"nearest"`` or ``"bilinear"``), and ``enable_refraction`` sends a
+    (1 - dissolve) share of the rays that hit a dielectric (Ni > 0,
+    dissolve < 1) through it by Snell and Schlick, which also turns the
+    pair sweep off (shadow and bounce origins differ).
+
     Every default is the JAX package's but one: ``compaction`` is False
     here.  The sort keys come from an (rays x clusters) elementwise chain
     that XLA fuses into one reduce and eager PyTorch runs as some forty
@@ -267,6 +279,12 @@ class RenderConfig:
     shadow_hit_key_from: int = -1
     pair_broadphase: bool = True
     rank_trace: int = 0
+    enable_specular: bool = False
+    enable_emission: bool = False
+    enable_refraction: bool = False
+    enable_textures: bool = False
+    texture_filter: str = "nearest"
+    env_map: bool = False
 
     def __post_init__(self):
         if self.tracer not in TRACERS:
@@ -278,6 +296,9 @@ class RenderConfig:
         if self.rank_trace not in (0, 2):
             raise ValueError("rank_trace takes 0 (off) or 2 (two candidate "
                              f"clusters a ray), got {self.rank_trace!r}")
+        if self.texture_filter not in TEXTURE_FILTERS:
+            raise ValueError(f"texture_filter must be one of "
+                             f"{TEXTURE_FILTERS}, got {self.texture_filter!r}")
         if self.broadphase_block % 32 or not 0 < self.broadphase_block <= 1024:
             raise ValueError(f"broadphase_block must be a multiple of 32 in "
                              f"[32, 1024], got {self.broadphase_block}")

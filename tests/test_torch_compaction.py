@@ -16,7 +16,15 @@ Three layers, each on the same inputs for both packages:
   ``compaction=True, rank_trace=2`` meets the JAX renderer at the golden
   gate of ``tests/test_golden.py`` (RMSE < 1e-3, max difference < 5e-2).
 
-One JAX build of each scene (procedural stand-ins) is carried to the port.
+One JAX build of each scene (procedural stand-ins) is carried to the port,
+and each (scene, config) is rendered once per module (the ``renders``
+fixture).  coatball's configs run the plain tracers as they are, so a fault
+in them that depends on the batch or the ray order shows there.  A traced
+ray's result depends only on the ray (origin, direction, seed, segment
+length), so dragon's configs share one per-ray memo of the plain tracers: a
+ray that several configs trace, in whatever order, is traced once and every
+config gets the same bits.  Against dragon the tests catch faults of the
+renderer (a fold, mask, seed or permutation), not of the tracers.
 """
 
 import dataclasses
@@ -180,27 +188,84 @@ def test_morton_codes_equal_reference(scenes, scene):
     assert len(torch.unique(got)) > 2000
 
 
-_IMAGES = {}
+def _ray_rows(*cols) -> list:
+    """One bytes key per ray from its columns' bits."""
+    rows = torch.cat([c.reshape(c.shape[0], -1).view(torch.int32)
+                      for c in cols], dim=1)
+    return [r.tobytes() for r in rows.numpy()]
 
 
-def render(scenes, scene, **kw):
-    """(image, stats) of one port sample of ``scene`` at the given config,
-    each config rendered once."""
-    tag = (scene, tuple(sorted(kw.items())))
-    if tag not in _IMAGES:
-        _, _, tdata, tspec = scenes[scene]
-        w, h = SIZES[scene]
-        cfg = RenderConfig(width=w, height=h, **kw)
-        img, stats = R.render_sample(tdata, tspec, cfg,
-                                     R.make_pixel_offsets(cfg), 0)
-        _IMAGES[tag] = (img.numpy(), {k: int(v) for k, v in stats.items()})
-    return _IMAGES[tag]
+class MemoTracers:
+    """The plain (closest, any_hit) pair of ``R.make_tracers`` with a
+    per-ray memo: each call traces only the live rays no earlier call
+    traced, and takes the rest from the memo."""
+
+    def __init__(self, tdata, tspec):
+        self.closest_fn, self.any_fn = R.make_tracers(tdata, tspec, "torch")
+        self.hits, self.occ = {}, {}
+
+    def _split(self, memo, keys, mask):
+        live = mask.nonzero()[:, 0].tolist()
+        new = torch.zeros_like(mask)
+        new[[i for i in live if keys[i] not in memo]] = True
+        return live, new
+
+    def closest(self, o, d, m, seed, seed_base=None):
+        none = torch.full((o.shape[0], 1), -1, dtype=torch.int32)
+        keys = _ray_rows(o, d, none if seed is None else seed[:, None],
+                         none if seed_base is None else seed_base[:, None])
+        live, new = self._split(self.hits, keys, m)
+        hit = self.closest_fn(o, d, new, seed, seed_base)
+        t, tri = hit.t.clone(), hit.tri.clone()
+        for i in live:
+            if new[i]:
+                self.hits[keys[i]] = (t[i].item(), tri[i].item())
+            else:
+                t[i], tri[i] = self.hits[keys[i]]
+        return dataclasses.replace(hit, t=t, tri=tri)
+
+    def any_hit(self, o, d, mt, m):
+        keys = _ray_rows(o, d, mt[:, None])
+        live, new = self._split(self.occ, keys, m)
+        occ = self.any_fn(o, d, mt, new).clone()
+        for i in live:
+            if new[i]:
+                self.occ[keys[i]] = occ[i].item()
+            else:
+                occ[i] = self.occ[keys[i]]
+        return occ
+
+
+@pytest.fixture(scope="module")
+def renders(scenes):
+    """``render(scene, **config) -> (image, stats)``: one port sample of
+    ``scene`` at the given config, each config rendered once per module;
+    coatball on the plain tracers, all of dragon's configs through one
+    :class:`MemoTracers`."""
+    memo = MemoTracers(*scenes["dragon"][2:])
+    tracers = {"coatball": None, "dragon": (memo.closest, memo.any_hit)}
+    images = {}
+
+    def render(scene, **kw):
+        tag = (scene, tuple(sorted(kw.items())))
+        if tag not in images:
+            _, _, tdata, tspec = scenes[scene]
+            w, h = SIZES[scene]
+            cfg = RenderConfig(width=w, height=h, **kw)
+            img, stats = R.render_sample(tdata, tspec, cfg,
+                                         R.make_pixel_offsets(cfg), 0,
+                                         tracers=tracers[scene])
+            images[tag] = (img.numpy(),
+                           {k: int(v) for k, v in stats.items()})
+        return images[tag]
+
+    return render
 
 
 @pytest.mark.parametrize("scene", ["coatball", "dragon"])
-def test_compaction_is_a_permutation(scenes, scene):
-    ref, ref_stats = render(scenes, scene)
-    img, stats = render(scenes, scene, compaction=True)
+def test_compaction_is_a_permutation(renders, scene):
+    ref, ref_stats = renders(scene)
+    img, stats = renders(scene, compaction=True)
     assert img.max() > 0.01 and np.isfinite(img).all()
     assert rmse(ref, img) < 1e-7
     assert stats["closest_rays"] == ref_stats["closest_rays"]
@@ -222,9 +287,9 @@ VARIANTS = {
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_dragon_compaction_variants_give_the_same_image(scenes, variant):
-    ref, ref_stats = render(scenes, "dragon", compaction=True)
-    img, stats = render(scenes, "dragon", compaction=True, **VARIANTS[variant])
+def test_dragon_compaction_variants_give_the_same_image(renders, variant):
+    ref, ref_stats = renders("dragon", compaction=True)
+    img, stats = renders("dragon", compaction=True, **VARIANTS[variant])
     np.testing.assert_allclose(img, ref, atol=1e-6)
     assert stats["closest_rays"] == ref_stats["closest_rays"]
     assert stats["shadow_rays"] == ref_stats["shadow_rays"]
@@ -236,11 +301,12 @@ def test_dragon_compaction_variants_give_the_same_image(scenes, variant):
             assert 0 <= stats[f"rank_unresolved_b{b}"] < 0.2 * 32 * 24
 
 
-def test_rank_trace_is_off_without_its_seed_and_on_flat_scenes(scenes):
+def test_rank_trace_is_off_without_its_seed_and_on_flat_scenes(scenes,
+                                                               renders):
     """As in the reference: a flat scene has no rank path, and a scene with
     a global set needs the miss fold's global pass for the walk's seed."""
-    ref, _ = render(scenes, "coatball", compaction=True)
-    img, stats = render(scenes, "coatball", compaction=True, rank_trace=2)
+    ref, _ = renders("coatball", compaction=True)
+    img, stats = renders("coatball", compaction=True, rank_trace=2)
     np.testing.assert_array_equal(img, ref)
     assert "rank_unresolved_b1" not in stats
     _, _, tdata, tspec = scenes["coatball"]
@@ -256,9 +322,9 @@ def test_rank_trace_is_off_without_its_seed_and_on_flat_scenes(scenes):
     assert R.make_closest_rank(tdata, tspec, on, "torch", closest) is None
 
 
-def test_dragon_rank_trace_image_matches_reference(scenes):
+def test_dragon_rank_trace_image_matches_reference(scenes, renders):
     jr = scenes["dragon_renderer"]
-    img, stats = render(scenes, "dragon", compaction=True, rank_trace=2)
+    img, stats = renders("dragon", compaction=True, rank_trace=2)
     assert img.shape == (24, 32, 3) and img.max() > 0.01
     assert rmse(jr.image, img) < 1e-3
     assert np.abs(jr.image - img).max() < 5e-2

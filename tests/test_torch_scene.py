@@ -11,7 +11,8 @@ from metal_raytracing_tpu.io import procedural as jproc
 from metal_raytracing_tpu.scenes import library as jlib
 from metal_raytracing_tpu_torch import accel as taccel
 from metal_raytracing_tpu_torch.io import procedural as tproc
-from metal_raytracing_tpu_torch.scene import (scene_data_arrays,
+from metal_raytracing_tpu_torch.scene import (build_scene_data,
+                                              scene_data_arrays,
                                               scene_data_from_reference)
 from metal_raytracing_tpu_torch.scenes import library as tlib
 
@@ -133,5 +134,11 @@ def test_unported_builders_and_features_raise():
     scene = tlib.get_scene("teapot", 16, 16)
     with pytest.raises(ValueError, match="ROADMAP"):
         scene.build(builder="sah", device="cpu")
-    with pytest.raises(NotImplementedError, match="textured"):
-        tlib.get_scene("uv_test", 16, 16).build(device="cpu")
+    with pytest.raises(NotImplementedError, match="max_edge_frac"):
+        build_scene_data(scene.instances, scene.lights, scene.camera(),
+                         max_edge_frac=0.1, device="cpu")
+    # a textured scene is refused subdivision, as in the JAX package
+    uv = tlib.get_scene("uv_test", 16, 16)
+    with pytest.raises(ValueError, match="textured"):
+        build_scene_data(uv.instances, uv.lights, uv.camera(),
+                         max_edge_frac=0.1, device="cpu")

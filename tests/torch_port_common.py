@@ -204,3 +204,25 @@ def model_closest(o, d, mask, seed, seed_base, tri, bvh, rounds):
     t = (key & ~TC.IDX_MASK).view(np.float32)
     tri_id = np.where(key < TC._MISS_KEY, base + (key & TC.IDX_MASK), -1)
     return t, tri_id, steps[0]
+
+
+# The reference's golden gate (tests/test_golden.py): image RMSE and the
+# largest pixel difference.
+GATE_RMSE = 1e-3
+GATE_MAX = 5e-2
+
+
+def assert_image_gate(got, ref, what: str, worst: int = 5) -> None:
+    """``got`` within the golden gate of ``ref`` ((H, W, 3) arrays); the
+    message names the ``worst`` pixels with both values."""
+    diff = np.asarray(got, np.float64) - np.asarray(ref, np.float64)
+    err = float(np.sqrt(np.mean(diff ** 2)))
+    per_px = np.abs(diff).max(axis=-1)
+    top = np.argsort(per_px, axis=None)[::-1][:worst]
+    pixels = "; ".join(
+        f"(y={y}, x={x}) {np.asarray(got)[y, x]} vs {np.asarray(ref)[y, x]}"
+        for y, x in zip(*np.unravel_index(top, per_px.shape)))
+    msg = (f"{what}: RMSE {err:.3e} (gate {GATE_RMSE}), max "
+           f"{per_px.max():.3e} (gate {GATE_MAX}); worst pixels, port vs "
+           f"reference: {pixels}")
+    assert err < GATE_RMSE and per_px.max() < GATE_MAX, msg
