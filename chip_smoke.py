@@ -80,7 +80,23 @@ Phases, each of which raises (exit code != 0) on failure:
     ``compaction=False`` one; then each scene with the CLI's config and
     with the extensions off, in turns: ms/sample, launches of K1/K2 and of
     all kernels a sample, device ms/sample (profiler) and the device's idle
-    share of the median and of the fastest round's wall.
+    share of the median and of the fastest round's wall;
+15. the exact tracers (``tracer="bvh"``, the JAX package's own path off a
+    TPU): ``closest_bvh_kernel`` and ``any_bvh_kernel`` (``csrc/
+    trace_bvh.cu``, no Pallas counterpart: the jnp packet walk of
+    ``metal_raytracing_tpu/ops/trace.py``) on dragon's and coatball's
+    recorded primary and bounce-1 passes, against their plain packet
+    versions and the brute force on every 16th ray and against K1-K4 on
+    every ray (found masks and flags equal, t within rtol 1e-5, sources
+    equal on >= 99.9% of live rays apart from ties with the global set,
+    every mismatch a near-tie), each kernel's ms beside the cluster
+    kernel's on the same pass, its bound and the plain packet walk's ms on
+    the strided rays; then dragon 1024x1024 with ``tracer="cuda"``,
+    ``tracer="bvh", compaction=True`` and ``tracer="bvh"`` in turns, two
+    rounds of 3 samples (ms/sample, device ms/sample, each bvh image
+    against the cuda image at the golden gate, the BVH kernels' launches),
+    and a 128x128 cross-check of the kernels' image against the plain
+    packet walk's.
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
 tables once) over 3.35 TB/s, the H100 SXM's published HBM rate, and its
@@ -107,12 +123,22 @@ t (for K6: each candidate cluster that survives the cull of its walk),
 dense-tested at 39 operations per triangle slot (``tri_hit`` in
 ``csrc/trace_common.cuh``), plus 27 operations per slab test (the boxes a
 walk must test to find those clusters); for an unoccluded shadow ray every
-cluster its segment overlaps, for an occluded one a single triangle.
+cluster its segment overlaps, for an occluded one a single triangle.  The
+BVH kernels' bounds count the same way over their own tests
+(``bvh_work``): the global set, ``B`` slab tests of 20 issue slots
+(``ray_aabb``) for every node a ray must open (the root, and each inner
+node it enters below its final t or within its segment), and
+``cluster_size`` Moller-Trumbore tests of 30 (``moller_trumbore``: 45
+multiplies and adds, a division, an abs and six compares) for each leaf
+it enters so; a single triangle for an occluded shadow ray.
 
 It prints one JSON line of per-kernel results (K5 twice: its closest
 global mode with the launches of ``fused_broadphase=True`` at
 ``compaction=False``, and its cluster-key mode with those of phase 12's
-``compaction=True, fused_broadphase=True``), and last the line
+``compaction=True, fused_broadphase=True``; the two BVH kernels with
+phase 15's bvh launches, ``pallas_counterpart`` null and ``plain_ms`` of
+the plain packet walk on the ``plain_rays`` strided rays), and last the
+line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits with an error and
 renders nothing (there is no CPU fallback).
 """
@@ -159,8 +185,24 @@ FP32_LANES_PER_SM = 128
 SLAB_OPS = 12 // 2 + 15  # slab(): 6 sub, 6 mul; 10 min/max, clamp, 4 cmp
 PLANE_OPS = 34 // 2 + 5  # plane_hit(): 34 mul/add/sub (3 in the Newton
 #                          step); 1 div, 4 compares
+# The same for the exact BVH walk's tests (ops/intersect.py):
+BVH_SLAB_OPS = 12 // 2 + 14  # ray_aabb: 6 sub, 6 mul; 10 min/max, 4 compares
+MT_OPS = 45 // 2 + 8  # moller_trumbore: 45 mul/add/sub; div, abs, 6 compares
 CSRC = "metal_raytracing_tpu_torch/csrc/"
 PALLAS = "metal_raytracing_tpu/ops/trace_pallas.py"
+# The jnp packet walk that the BVH kernels take to the card (no Pallas
+# kernel): _packet_closest and _packet_any.
+TRACE_PY = "metal_raytracing_tpu/ops/trace.py"
+BVH_CONFIGS = (  # phase 15's dragon configs, in turns: (label, keywords)
+    ("cuda compaction=False", dict(tracer="cuda")),
+    ("bvh compaction=True", dict(tracer="bvh", compaction=True)),
+    ("bvh compaction=False", dict(tracer="bvh")),
+)
+GOLDEN_MAX = 5e-2  # the golden gate's max pixel difference
+# Distance from an edge, relative to |o| + t, within which the exact
+# tracers' hit test and K1-K4's may disagree on a hit: 16 float32 ulps
+# (both tests round a point that sits that close to the edge).
+EDGE_REL = 2.0 ** -20
 LIBRARY = None  # no PyTorch call computes a packed-key BVH walk
 WARP = 32
 # Kernel ms of the one-thread-per-ray kernels that the warp-cooperative ones
@@ -1035,12 +1077,15 @@ def main_path(renderer, card, label, size):
 
 
 def launch_counts():
+    from metal_raytracing_tpu_torch.ops import trace as PT
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
     from metal_raytracing_tpu_torch.ops.broadphase_cuda import \
         broadphase_keys
     from metal_raytracing_tpu_torch.ops.rank_cuda import trace_closest_rank
 
-    return {"closest_flat": TC.trace_closest.launches,
+    return {"closest_bvh": PT.trace_closest.launches,
+            "any_bvh": PT.trace_any.launches,
+            "closest_flat": TC.trace_closest.launches,
             "any_flat": TC.trace_any.launches,
             "closest_hier": TC.trace_closest.launches_hier,
             "any_hier": TC.trace_any.launches_hier,
@@ -1188,6 +1233,439 @@ def extension_scenes(card):
         del rs
         torch.cuda.empty_cache()
     return launches, samples
+
+
+def bvh_work(o, d, mask, data, spec, t_final=None, max_t=None, occ=None):
+    """(bytes, operations) a pass of the exact BVH walk needs: for a
+    closest ray (``t_final``: its final hit t) the global set, the slab
+    tests of every node it must open (the root, and each internal node it
+    enters below its final t) and ``cluster_size`` Moller-Trumbore tests
+    of each leaf it enters below its final t; for an unoccluded shadow ray
+    (``max_t``, ``occ``) the same with every node and leaf its segment
+    overlaps; for an occluded one a single triangle."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops.intersect import (ray_aabb,
+                                                          safe_inverse)
+
+    bvh = spec.bvh
+    geo = data.geometry
+    n = o.shape[0]
+    nbytes = 3 * geo.v0.numel() * 4 + 2 * data.node_lo.numel() * 4
+    if t_final is not None:
+        nbytes += n * (12 + 12 + 1) + n * 16  # rays in; t, u, v, tri out
+    else:
+        nbytes += n * (12 + 12 + 4 + 1) + n  # rays and max_t in; flag out
+    walking = mask if occ is None else mask & ~occ
+    n_walk = int(walking.sum())
+    planes = n_walk * bvh.num_global
+    slabs = 0
+    if bvh.levels == 0:
+        planes += n_walk * bvh.cluster_size
+    else:
+        slabs += n_walk * bvh.branching  # the root is always opened
+        nodes = torch.arange(1, bvh.first_leaf + bvh.num_clusters,
+                             device=o.device)
+        lo, hi = data.node_lo[nodes], data.node_hi[nodes]
+        leaf = nodes >= bvh.first_leaf
+        for r in _live_chunks(walking, nodes.shape[0]):
+            lim = (t_final if t_final is not None else max_t)[r, None]
+            tn, hit = ray_aabb(o[r, None], safe_inverse(d[r, None]),
+                               lo[None], hi[None], lim)
+            if t_final is not None:
+                hit &= tn < lim
+            opened = hit.sum(0)
+            slabs += int(opened[~leaf].sum()) * bvh.branching
+            planes += int(opened[leaf].sum()) * bvh.cluster_size
+    if occ is not None:
+        planes += int((mask & occ).sum())
+    return nbytes, slabs * BVH_SLAB_OPS + planes * MT_OPS
+
+
+def mt_t(o, d, geo, tri):
+    """Moller-Trumbore t of each ray against its slot ``tri`` (-1: BIG_T),
+    the exact tracers' arithmetic."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops.intersect import BIG_T, moller_trumbore
+
+    j = tri.clamp(min=0).long()
+    t = moller_trumbore(o, d, geo.v0[j], geo.e1[j], geo.e2[j])[0]
+    return torch.where(tri >= 0, t, BIG_T)
+
+
+def margins(o, d, data, tri):
+    """Signed distances of each ray's hit on slot ``tri`` (>= 0) from the
+    nearest edge of the triangle, positive inside, under the two hit tests
+    (Moller-Trumbore, the exact tracers'; the plane rows of K1-K6), each
+    over |o| + t (the scale the tests round at)."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.ops.intersect import moller_trumbore
+
+    geo, j = data.geometry, tri.long()
+    t, u, v, _ = moller_trumbore(o, d, geo.v0[j], geo.e1[j], geo.e2[j])
+    rows = data.tri_planes[:, j].T
+    _, u2, v2 = TC.recompute_tuv(o, d, rows)
+    gu, gv = rows[:, 4:7], rows[:, 8:11]
+    norms = [g.norm(dim=-1).clamp(min=1e-30) for g in (gu, gv, gu + gv)]
+    scale = o.abs().amax(dim=-1) + t.abs()
+
+    def dist(u, v):
+        return torch.stack([u / norms[0], v / norms[1],
+                            (1.0 - u - v) / norms[2]]).amin(dim=0) / scale
+
+    return dist(u, v), dist(u2, v2)
+
+
+def on_edge(o, d, data, tri):
+    """Rays whose hit on slot ``tri`` lies within EDGE_REL of an edge of
+    the triangle under both hit tests."""
+    mt, pl = margins(o, d, data, tri.clamp(min=0))
+    return (tri >= 0) & (mt.abs() <= EDGE_REL) & (pl.abs() <= EDGE_REL)
+
+
+def bvh_gate(name, o, d, m, t, tri, ref_t, ref_tri, data, global_base,
+             cross=False):
+    """The gate of the exact tracers against another tracer on the live
+    rays ``m``: found masks equal, t within rtol 1e-5, the source triangle
+    equal on >= 99.9% of them and every mismatch a near-tie.
+
+    A mismatch where one winner lies in the global set is a contact tie
+    (dragon and coatball stand on the floor, ROADMAP Queue 3 item 5): the
+    walk gives an exact tie to the global set, tested first, the brute
+    force to the lowest slot, and the packed key of K1-K4 gives every tie
+    within its chop to the global seed, while the walk takes a cluster hit
+    an ulp nearer.  Such a mismatch must be a near-tie too, but it is
+    counted apart from the 99.9%.
+
+    ``cross``: the reference is K1-K4, whose hit test is another
+    arithmetic (plane rows, a Newton-refined reciprocal).  Where the two
+    tests disagree on a hit that lies on an edge, the two tracers find
+    different triangles, or one finds none: a ray that is neither equal
+    nor a near-tie must then have its nearer winner within EDGE_REL of an
+    edge under both tests; such rays count against the 99.9% with the
+    near-ties.  Returns (the share of equal source triangles, mismatches,
+    max |t - ref_t| where the slots agree)."""
+    import torch
+
+    src = data.tri_src
+    same = (src[tri.clamp(min=0).long()] == src[ref_tri.clamp(min=0).long()]
+            ) & ((tri >= 0) == (ref_tri >= 0))
+    found, rfound = (tri >= 0) & m, (ref_tri >= 0) & m
+    bad = m & ~same
+    both = bad & found & rfound
+    rel = torch.zeros_like(t)
+    if bool(both.any()):
+        ta = mt_t(o[both], d[both], data.geometry, tri[both])
+        tb = mt_t(o[both], d[both], data.geometry, ref_tri[both])
+        rel[both] = (ta - tb).abs() / tb.abs()
+    tie = both & (rel <= NEAR_TIE_REL)
+    contact = tie & ((tri >= global_base) | (ref_tri >= global_base))
+    edge = bad & ~tie
+    if bool(edge.any()):
+        nearer = torch.where(t <= ref_t, tri, ref_tri)
+        for i in edge.nonzero()[:12, 0].tolist():
+            mt, pl = margins(o[i:i + 1], d[i:i + 1], data,
+                             nearer[i:i + 1].clamp(min=0))
+            log(f"      ray {i}: t {float(t[i]):.9g} slot {int(tri[i])} / "
+                f"reference t {float(ref_t[i]):.9g} slot {int(ref_tri[i])}; "
+                f"the nearer's distance from an edge over |o| + t "
+                f"{float(mt[0]):.3e} (Moller-Trumbore) {float(pl[0]):.3e} "
+                f"(plane rows; gate {EDGE_REL:.3e})")
+        assert cross, f"{name}: {int(edge.sum())} mismatches are not ties"
+        explained = on_edge(o[edge], d[edge], data, nearer[edge])
+        assert bool(explained.all()), (
+            f"{name}: {int((~explained).sum())} mismatches are neither "
+            "near-ties nor edge hits")
+    agree = found & (tri == ref_tri)
+    t_rel = float(((t - ref_t).abs() / ref_t.abs())[agree].max()
+                  ) if bool(agree.any()) else 0.0
+    tie_rel = float(rel[tie].max()) if bool(tie.any()) else 0.0
+    err = float((t - ref_t)[agree].abs().max()) if bool(agree.any()) else 0.0
+    n_live = max(int(m.sum()), 1)
+    share = 1.0 - int(bad.sum()) / n_live
+    n_contact, n_edge = int(contact.sum()), int(edge.sum())
+    log(f"    {name}: {int(m.sum())} live rays ({int(found.sum())} hits), "
+        f"sources equal {share:.6f}: {int(tie.sum())} near-ties ({n_contact} "
+        f"with the global set; winners' t rel max {tie_rel:.3e}, gate "
+        f"{NEAR_TIE_REL:.3e}), {n_edge} edge hits; on equal slots t rel max "
+        f"{t_rel:.3e} (gate 1e-5), max |t - t_ref| {err:.3e}")
+    assert t_rel <= 1e-5, f"{name}: t off by {t_rel}"
+    assert 1.0 - (int(bad.sum()) - n_contact) / n_live >= MIN_MATCH, (
+        f"{name}: sources equal on {share}")
+    return share, int(bad.sum()), err
+
+
+def flags_gate(name, args, occ, ref, data, spec, cross=False):
+    """Occlusion flags equal on every live ray of ``args`` (o, d, max_t,
+    mask).  ``cross`` (the reference is K2 or K4): a ray whose flags differ
+    must have its occluder (the nearest hit within max_t under the test
+    that found one) within EDGE_REL of an edge, or within EDGE_REL
+    relative of max_t, and such rays stay under 0.1%."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import trace as PT
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    o, d, mt, m = args
+    diff = (occ != ref) & m
+    n_diff = int(diff.sum())
+    if n_diff:
+        i = diff.nonzero()[:, 0]
+        ours = occ[i]  # the walk found the occluder, else the reference
+        hit = PT.trace_closest_bruteforce(o[i], d[i], ours, data.geometry)
+        _, k_tri = TC.closest_flat_ref(o[i], d[i], ~ours, data.tri_planes,
+                                       spec.bvh)
+        occluder = torch.where(ours, hit.tri, k_tri)
+        t_occ = mt_t(o[i], d[i], data.geometry, occluder)
+        for k in range(min(12, n_diff)):
+            a, b = margins(o[i[k:k + 1]], d[i[k:k + 1]], data,
+                           occluder[k:k + 1].clamp(min=0))
+            log(f"      ray {int(i[k])}: occluded by the "
+                f"{'walk' if bool(ours[k]) else 'reference'}, slot "
+                f"{int(occluder[k])} at t {float(t_occ[k]):.9g} of max_t "
+                f"{float(mt[i[k]]):.9g}; distance from an edge over |o| + t "
+                f"{float(a[0]):.3e} (Moller-Trumbore) {float(b[0]):.3e} "
+                f"(plane rows)")
+        assert cross, f"{name}: flags differ on {n_diff} rays"
+        at_end = (t_occ - mt[i]).abs() <= EDGE_REL * mt[i]
+        explained = on_edge(o[i], d[i], data, occluder) | at_end
+        assert bool(explained.all()), (
+            f"{name}: {int((~explained).sum())} flags differ off an edge")
+        assert n_diff <= (1.0 - MIN_MATCH) * max(int(m.sum()), 1), name
+    log(f"    {name}: flags equal on {int(m.sum()) - n_diff} of "
+        f"{int(m.sum())} live rays ({n_diff} edge or segment-end hits; "
+        f"{int((occ & m).sum())} occluded)")
+
+
+def check_bvh_closest(name, args, data, spec):
+    """closest_bvh_kernel on one recorded closest pass: against the plain
+    packet walk and the brute force on every CHECK_STRIDE-th ray, and
+    against K1 or K3 (the scene's cluster kernel, with the pass's seed) on
+    every ray; the kernel's and the cluster kernel's ms on the whole pass,
+    the plain packet walk's on the strided rays, and the bound."""
+    from metal_raytracing_tpu_torch.ops import trace as PT
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    o, d, m, seed = args
+    geo, bvh = data.geometry, spec.bvh
+    tabs = (geo, data.node_lo, data.node_hi, bvh)
+    hit = PT.trace_closest(o, d, m, *tabs)
+    so, sd, sm, _ = _strided(args, CHECK_STRIDE)
+    sub = PT.trace_closest(so, sd, sm, *tabs)
+    plain_ms, ref = cuda_call(lambda: PT.closest_packet_ref(so, sd, sm,
+                                                            *tabs))
+    brute = PT.trace_closest_bruteforce(so, sd, sm, geo)
+    log(f"  {name}: {int(m.sum())} live rays")
+    _, _, err = bvh_gate(f"vs plain packet (every {CHECK_STRIDE}th)", so,
+                         sd, sm, sub.t, sub.tri, ref.t, ref.tri, data,
+                         bvh.global_base)
+    uv_same = bool(((sub.u == ref.u) & (sub.v == ref.v))[
+        sm & (sub.tri == ref.tri)].all())
+    assert uv_same, f"{name}: u, v differ from the plain version's"
+    bvh_gate(f"vs brute force (every {CHECK_STRIDE}th)", so, sd, sm, sub.t,
+             sub.tri, brute.t, brute.tri, data, bvh.global_base)
+    cluster = TC.trace_closest(o, d, m, data.sup_planes, data.clu_planes,
+                               data.tri_planes, bvh, seed)
+    k_name = "K1" if TC._use_flat(bvh) else "K3"
+    bvh_gate(f"vs {k_name} (every ray)", o, d, m, hit.t, hit.tri,
+             mt_t(o, d, geo, cluster.tri), cluster.tri, data,
+             bvh.global_base, cross=True)
+    ms = cuda_ms(lambda: PT.trace_closest(o, d, m, *tabs), 5)
+    k_ms = cuda_ms(lambda: TC.trace_closest(o, d, m, data.sup_planes,
+                                            data.clu_planes, data.tri_planes,
+                                            bvh, seed), 5)
+    bnd = bound(*bvh_work(o, d, m, data, spec, t_final=hit.t))
+    log(f"    closest_bvh_kernel {ms:.3f} ms ({k_name} {k_ms:.3f} ms on the "
+        f"same pass), bound {bnd[0]:.4f} ms ({bnd[1]}); plain packet walk "
+        f"{plain_ms:.3f} ms on the {int(sm.shape[0])} strided rays")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
+            "k_ms": k_ms, "plain_rays": int(sm.shape[0])}
+
+
+def check_bvh_any(name, args, data, spec):
+    """any_bvh_kernel on one recorded shadow pass, as
+    :func:`check_bvh_closest` (K2 or K4 as the cluster kernel)."""
+    from metal_raytracing_tpu_torch.ops import trace as PT
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    o, d, mt, m = args
+    geo, bvh = data.geometry, spec.bvh
+    tabs = (geo, data.node_lo, data.node_hi, bvh)
+    occ = PT.trace_any(o, d, mt, m, *tabs)
+    so, sd, smt, sm = _strided(args, CHECK_STRIDE)
+    sub = PT.trace_any(so, sd, smt, sm, *tabs)
+    plain_ms, ref = cuda_call(lambda: PT.any_packet_ref(so, sd, smt, sm,
+                                                        *tabs))
+    brute = PT.trace_any_bruteforce(so, sd, smt, sm, geo)
+    log(f"  {name}: {int(m.sum())} live rays")
+    strided = (so, sd, smt, sm)
+    flags_gate(f"vs plain packet (every {CHECK_STRIDE}th)", strided, sub,
+               ref, data, spec)
+    flags_gate(f"vs brute force (every {CHECK_STRIDE}th)", strided, sub,
+               brute, data, spec)
+    cluster = TC.trace_any(o, d, mt, m, data.sup_planes, data.clu_planes,
+                           data.tri_planes, bvh)
+    k_name = "K2" if TC._use_flat(bvh) else "K4"
+    flags_gate(f"vs {k_name} (every ray)", args, occ, cluster, data, spec,
+               cross=True)
+    ms = cuda_ms(lambda: PT.trace_any(o, d, mt, m, *tabs), 5)
+    k_ms = cuda_ms(lambda: TC.trace_any(o, d, mt, m, data.sup_planes,
+                                        data.clu_planes, data.tri_planes,
+                                        bvh), 5)
+    bnd = bound(*bvh_work(o, d, m, data, spec, max_t=mt, occ=occ))
+    log(f"    any_bvh_kernel {ms:.3f} ms ({k_name} {k_ms:.3f} ms on the same "
+        f"pass), bound {bnd[0]:.4f} ms ({bnd[1]}); plain packet walk "
+        f"{plain_ms:.3f} ms on the {int(sm.shape[0])} strided rays")
+    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
+            "k_ms": k_ms, "plain_rays": int(sm.shape[0])}
+
+
+def bvh_kernels():
+    """Phase 15 (a): the two BVH kernels on coatball's and dragon's recorded
+    primary and bounce-1 passes.  Returns {kernel: [per-pass result]},
+    dragon's primary pass first."""
+    import torch
+
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    out = {"closest": [], "any": []}
+    for scene, (w, h) in (("dragon", DRAGON), ("coatball", COATBALL)):
+        r = Renderer(get_scene(scene, w, h), RenderConfig(width=w, height=h),
+                     device="cuda")
+        calls = record_passes(r)
+        for b in (0, 1):
+            out["closest"].append(check_bvh_closest(
+                f"{scene} {w}x{h} closest bounce {b}", calls["closest"][b],
+                r.data, r.spec))
+            out["any"].append(check_bvh_any(
+                f"{scene} {w}x{h} any bounce {b}", calls["any"][b], r.data,
+                r.spec))
+        del calls, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def bvh_main_path(card, size):
+    """Phase 15 (b): the JAX CLI's GPU path, dragon with ``tracer="bvh"``
+    under ``compaction=True`` and ``False`` beside ``tracer="cuda"``, in
+    turns; each bvh image against the cuda image at the golden gate.
+    Returns the BVH kernels' launches over the bvh configs' timed runs and
+    the samples of those runs."""
+    import torch
+
+    from metal_raytracing_tpu_torch.io.image import rmse
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
+
+    w, h = size
+    scene = get_scene("dragon", w, h)
+    rs = [Renderer(scene, RenderConfig(width=w, height=h, **kw),
+                   device="cuda") for _, kw in BVH_CONFIGS]
+    for r in rs:  # warm-up: one sample each
+        r.render(1)
+    torch.cuda.synchronize()
+    ms = {label: [] for label, _ in BVH_CONFIGS}
+    launches = {"closest_bvh": 0, "any_bvh": 0}
+    samples = 0
+    for _ in range(ROUNDS):
+        for (label, _), r in zip(BVH_CONFIGS, rs):
+            TC.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(ROUND_SAMPLES)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) / ROUND_SAMPLES * 1e3)
+            counts = launch_counts()
+            cluster = sum(v for k, v in counts.items() if not k.endswith(
+                "_bvh"))
+            if r.tracer == "bvh":
+                for k in launches:
+                    assert counts[k] == 3 * ROUND_SAMPLES, (label, counts)
+                    launches[k] += counts[k]
+                assert cluster == 0, (label, counts)
+                samples += ROUND_SAMPLES
+            else:
+                assert counts["closest_bvh"] == counts["any_bvh"] == 0
+                assert counts["closest_hier"] == 3 * ROUND_SAMPLES, counts
+    # The two bvh configs trace each ray alike (the kernels walk per ray),
+    # so their images agree at the golden gate.  Against the cuda image
+    # only the rays whose two winners tie differ (phase 15 (a): the floor
+    # contact, the packed key's seed against the exact walk's ulp-nearer
+    # cluster hit), but such a ray takes another path and moves its pixel
+    # by up to its whole radiance over the sample count: the RMSE holds,
+    # and the pixels beyond the golden max stay under 0.1%.
+    ref = rs[0].image
+    bvh_ref = rs[1].image
+    for (label, _), r in zip(BVH_CONFIGS, rs):
+        img = r.image
+        assert img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+        assert float(img.min()) >= 0.0 and float(img.max()) > 0.01
+        err = rmse(img, ref)
+        worst = float(np.abs(img - ref).max())
+        over = float((np.abs(img - ref).max(axis=-1) >= GOLDEN_MAX).mean())
+        b_err = rmse(img, bvh_ref)
+        b_worst = float(np.abs(img - bvh_ref).max())
+        prof = profile_renderer(r, 2)
+        dev = prof.device_ms_per_sample
+        kern = {k: v / prof.samples for name, v, _ in prof.kernels
+                for k in ("closest_bvh_kernel", "any_bvh_kernel",
+                          "closest_hier_kernel", "any_hier_kernel")
+                if k in name}
+        log(f"  dragon {w}x{h} {label}: " + " / ".join(
+            f"{x:.3f}" for x in ms[label]) + f" ms/sample; device {dev:.3f} "
+            f"ms/sample ({prof.launches // prof.samples} kernels/sample; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in kern.items())
+            + f" ms/sample); idle {1 - dev / min(ms[label]):.3f} of the "
+            f"fastest round; after {r.total_samples - 2} samples: image vs "
+            f"cuda RMSE {err:.3e} (gate < {IMAGE_RMSE}), max {worst:.3e}, "
+            f"{over:.2e} of the pixels >= {GOLDEN_MAX} (gate < "
+            f"{1 - MIN_MATCH:.0e}); vs bvh compaction=True RMSE "
+            f"{b_err:.3e} max {b_worst:.3e} (gate < {IMAGE_RMSE}, < "
+            f"{GOLDEN_MAX}); on {card}")
+        assert err < IMAGE_RMSE and over < 1 - MIN_MATCH, (label, err, over)
+        if r.tracer == "bvh":
+            assert b_err < IMAGE_RMSE and b_worst < GOLDEN_MAX, (label, b_err)
+    del rs
+    torch.cuda.empty_cache()
+    return launches, samples
+
+
+def bvh_cross_check(size):
+    """Phase 15 (c): the image through the BVH kernels against the image
+    through their plain packet versions, on the card."""
+    from metal_raytracing_tpu_torch import renderer as R
+    from metal_raytracing_tpu_torch.io.image import rmse
+    from metal_raytracing_tpu_torch.ops import trace as PT
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    w, h = size
+    cfg = RenderConfig(width=w, height=h, tracer="bvh", compaction=True)
+    r = R.Renderer(get_scene("dragon", w, h), cfg, device="cuda")
+    img = r.render(1)
+    tabs = (r.data.geometry, r.data.node_lo, r.data.node_hi, r.spec.bvh)
+    before = launch_counts()
+    plain, _ = R.render_sample(
+        r.data, r.spec, cfg, r.offsets, 0, "bvh",
+        (lambda o, d, m, seed=None, seed_base=None: PT.closest_packet_ref(
+            o, d, m, *tabs, cfg.ray_block),
+         lambda o, d, mt, m: PT.any_packet_ref(o, d, mt, m, *tabs,
+                                               cfg.ray_block)))
+    assert launch_counts() == before  # the plain run launched no kernel
+    plain = plain.cpu().numpy()
+    err = rmse(img, plain)
+    log(f"  dragon {w}x{h} 1 spp bvh compaction=True: RMSE kernels vs plain "
+        f"packet walk {err:.3e} (gate < {IMAGE_RMSE}), max "
+        f"{float(np.abs(img - plain).max()):.3e}")
+    assert err < IMAGE_RMSE, err
 
 
 def main() -> int:
@@ -1437,6 +1915,18 @@ def main() -> int:
     log(f"  K1/K2 launches with the extensions on over {ext_samples} "
         f"samples: {ext_launches}")
 
+    # ---- phase 15: the exact BVH tracers' kernels
+    t15 = time.perf_counter()
+    log(f"phase 15: closest_bvh_kernel / any_bvh_kernel vs their plain "
+        f"versions, the brute force and K1-K4")
+    bvh = bvh_kernels()
+    log("  the JAX CLI's GPU path (tracer=bvh), dragon, configs in turns, "
+        f"{ROUNDS} rounds of {ROUND_SAMPLES} samples:")
+    bvh_launches, bvh_samples = bvh_main_path(card, DRAGON)
+    log(f"  BVH kernel launches over {bvh_samples} samples: {bvh_launches}")
+    bvh_cross_check((128, 128))
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
     kernels = []
     modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries
     for key, name, src, line, first in (
@@ -1464,10 +1954,22 @@ def main() -> int:
         if key in walked:  # the walking plain version on the same pass
             kernels[-1]["plain_walk_ms"] = walked[key][0]["plain_walk_ms"]
             kernels[-1]["walk_bound_ms"] = walked[key][0]["walk_bound"][0]
+    for query, name, line in (("closest", "closest_bvh_kernel", 125),
+                              ("any", "any_bvh_kernel", 219)):
+        first = bvh[query][0]  # dragon's primary pass
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + "trace_bvh.cu",
+            "replaces": f"{TRACE_PY}:{line}", "pallas_counterpart": None,
+            "launches": bvh_launches[f"{query}_bvh"],
+            "max_abs_err": max(r["err"] for r in bvh[query]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "plain_rays": first["plain_rays"],
+            "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+            "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

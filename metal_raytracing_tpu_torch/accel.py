@@ -50,6 +50,12 @@ class BVHSpec:
         """First global slot = end of the clustered slot region."""
         return self.num_clusters * self.cluster_size
 
+    @property
+    def max_stack(self) -> int:
+        """Stack slots of a walk over the implicit tree: each internal
+        visit pops 1 and pushes <= B, and the depth bounds the growth."""
+        return (self.branching - 1) * max(self.levels, 1) + 2
+
 
 def _surface_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     """Half surface area of AABBs; empty (inverted) boxes score 0."""

@@ -8,6 +8,8 @@ Usage:
 
 ``--device`` defaults to ``cuda``; there is no silent fallback to the CPU
 (pass ``--device cpu`` to render with the kernels' plain PyTorch versions).
+``--tracer bvh --compaction`` is the path the JAX package's CLI renders off
+a TPU: the exact BVH walk, through its kernels on a CUDA device.
 As in the JAX package's CLI, each extension scene turns its shading
 extension on: specular for coatball, the environment map for bunny_env (or
 any scene with a map), textures for uv_test, refraction for glass_sphere.
@@ -82,8 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_shading_args(r)
     r.add_argument("--spp", type=int, default=4, help="samples per pixel")
     r.add_argument("--tracer", default="auto", choices=TRACERS,
-                   help="cuda: the kernels; torch: their plain versions; "
-                        "auto: follow the device")
+                   help="cuda: the cluster kernels; torch: their plain "
+                        "versions; auto: follow the device; bvh: the exact "
+                        "BVH walk (its kernels on a CUDA device, their plain "
+                        "versions on the CPU); bruteforce: the oracle")
     r.add_argument("--out", default="render.png")
     r.add_argument("--hdr-out", default=None,
                    help="also write linear HDR output")

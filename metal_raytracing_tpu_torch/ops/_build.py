@@ -125,6 +125,10 @@ def load_library() -> ctypes.CDLL:
         lib.launch_broadphase.restype = i
         lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 3
         lib.launch_closest_rank.restype = i
+        lib.launch_closest_bvh.argtypes = [p] * 8 + [i] * 7 + [p] * 5
+        lib.launch_closest_bvh.restype = i
+        lib.launch_any_bvh.argtypes = [p] * 9 + [i] * 7 + [p] * 2
+        lib.launch_any_bvh.restype = i
         lib.kernels_error_string.argtypes = [i]
         lib.kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

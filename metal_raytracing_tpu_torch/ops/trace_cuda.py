@@ -726,8 +726,9 @@ trace_any.launches_hier = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch counts (the broad phase's and the
-    rank walk's too)."""
+    """Zero every kernel wrapper's launch counts (the broad phase's, the
+    rank walk's and the BVH tracers' too)."""
+    from . import trace
     from .broadphase_cuda import broadphase_keys
     from .rank_cuda import trace_closest_rank
 
@@ -735,3 +736,4 @@ def reset_launch_counts() -> None:
     trace_any.launches = trace_any.launches_hier = 0
     broadphase_keys.launches = broadphase_keys.launches_clusters = 0
     trace_closest_rank.launches = 0
+    trace.trace_closest.launches = trace.trace_any.launches = 0

@@ -24,10 +24,14 @@ textures, a specular Phong lobe, refraction; ``RenderConfig``) are plain
 PyTorch between the trace passes, in the JAX package's order and on its
 Halton dimensions, and each is off unless its flag is set.
 
-Both tracers of the port, the CUDA kernels and their plain PyTorch
-versions, return the packed key's chopped hit distance, so the renderer
-recomputes the exact t from the winner's plane in the shade row, as the
-reference does after its Pallas tracer.
+The cluster tracers, the CUDA kernels (``tracer="cuda"``) and their plain
+PyTorch versions (``"torch"``), return the packed key's chopped hit
+distance, so the renderer recomputes the exact t from the winner's plane in
+the shade row, as the reference does after its Pallas tracer.  The exact
+tracers (``"bvh"``, ``"bruteforce"``; ``ops.trace``) take the reference's
+path for its own exact tracers: their t as it is, the global set tested
+inside the tracer, and under ``compaction`` the ``dir_major`` bounce key
+and the light-major shadow key in place of the cluster keys.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import torch
 
 from . import sampling
 from .lights import sample_lights, select_light
-from .ops import rank_cuda, trace_cuda
+from .ops import rank_cuda, trace, trace_cuda
 from .ops.broadphase_cuda import (BROADPHASE_MAX_CLUSTERS, NC_IDM,
                                   broadphase_keys, broadphase_ref,
                                   decode_cluster_key, nearest_cluster,
@@ -58,6 +62,9 @@ __all__ = ["render_sample", "render_rays", "pixel_coords", "accumulate",
 _DEAD_KEY = 1 << 30
 # The cluster sort keys hold a cluster id in at most 12 bits.
 _MAX_KEY_CLUSTERS = 4095
+# The JAX package's exact tracers (ops.trace): they test the global set
+# themselves and return the exact t.
+EXACT_TRACERS = ("bvh", "bruteforce")
 
 
 def make_pixel_offsets(cfg: RenderConfig, device="cpu") -> torch.Tensor:
@@ -118,8 +125,10 @@ def _texel(data: SceneData, mid: torch.Tensor, u: torch.Tensor,
 
 
 def resolve_tracer(cfg: RenderConfig, device) -> str:
-    """``"cuda"`` or ``"torch"``: ``"auto"`` follows the device, and the
-    kernels need a CUDA device."""
+    """The tracer the renderer runs: ``"auto"`` becomes ``"cuda"`` on a
+    CUDA device and ``"torch"`` elsewhere, and ``"cuda"`` needs a CUDA
+    device; ``"torch"``, ``"bvh"`` and ``"bruteforce"`` run on any device
+    (``"bvh"`` through its kernels on a CUDA device)."""
     device = torch.device(device)
     if cfg.tracer == "auto":
         return "cuda" if device.type == "cuda" else "torch"
@@ -130,11 +139,30 @@ def resolve_tracer(cfg: RenderConfig, device) -> str:
     return cfg.tracer
 
 
-def make_tracers(data: SceneData, spec: SceneSpec, tracer: str):
+def make_tracers(data: SceneData, spec: SceneSpec, tracer: str,
+                 block: int = 128):
     """(closest(o, d, mask, seed, seed_base=None) -> Hit, any_hit(o, d,
-    max_t, mask) -> bool) over the scene's packed planes: the kernel
-    wrappers for ``tracer="cuda"``, their plain versions for ``"torch"``."""
-    if tracer == "cuda":
+    max_t, mask) -> bool): over the scene's packed planes, the kernel
+    wrappers for ``tracer="cuda"`` and their plain versions for
+    ``"torch"``; over its geometry and node boxes, the exact tracers of
+    ``ops.trace`` for ``"bvh"`` (packets of ``block`` rays on the CPU) and
+    ``"bruteforce"``, which take no seed."""
+    if tracer in EXACT_TRACERS:
+        g, lo, hi, bvh = data.geometry, data.node_lo, data.node_hi, spec.bvh
+
+        if tracer == "bvh":
+            def closest(o, d, m, seed=None, seed_base=None):
+                return trace.trace_closest(o, d, m, g, lo, hi, bvh, block)
+
+            def any_hit(o, d, mt, m):
+                return trace.trace_any(o, d, mt, m, g, lo, hi, bvh, block)
+        else:
+            def closest(o, d, m, seed=None, seed_base=None):
+                return trace.trace_closest_bruteforce(o, d, m, g)
+
+            def any_hit(o, d, mt, m):
+                return trace.trace_any_bruteforce(o, d, mt, m, g)
+    elif tracer == "cuda":
         def closest(o, d, m, seed, seed_base=None):
             return trace_cuda.trace_closest(o, d, m, data.sup_planes,
                                             data.clu_planes, data.tri_planes,
@@ -178,7 +206,8 @@ def make_closest_rank(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     1024x1024's stragglers to the front first made the fallback no faster;
     PERF.md)."""
     bvh = spec.bvh
-    if (not cfg.rank_trace or trace_cuda._use_flat(bvh)
+    if (not cfg.rank_trace or tracer in EXACT_TRACERS
+            or trace_cuda._use_flat(bvh)
             or not (bvh.num_global == 0
                     or (cfg.host_seed and cfg.cluster_miss_fold))):
         return None
@@ -308,14 +337,20 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     pad = p - n
     lcount = spec.light_count
     bvh = spec.bvh
-    fold_global = cfg.host_seed and bvh.num_global > 0
+    # The exact tracers take the JAX package's non-Pallas path: they test
+    # the global set themselves (no host-side global passes), the bounce
+    # and shadow sorts use the dir_major and light-major keys, and the
+    # cluster-key knobs are off.
+    exact = tracer in EXACT_TRACERS
+    fold_global = cfg.host_seed and bvh.num_global > 0 and not exact
     nc_tot = data.clu_planes.shape[0] * data.clu_planes.shape[1]
-    if cfg.compaction and nc_tot > _MAX_KEY_CLUSTERS:
+    if cfg.compaction and not exact and nc_tot > _MAX_KEY_CLUSTERS:
         raise ValueError(
             f"compaction's cluster sort keys take <= {_MAX_KEY_CLUSTERS} "
             f"padded clusters, this scene has {nc_tot}; render it with "
             "compaction=False")
-    fused_keys = cfg.fused_broadphase and nc_tot <= BROADPHASE_MAX_CLUSTERS
+    fused_keys = (cfg.fused_broadphase and not exact
+                  and nc_tot <= BROADPHASE_MAX_CLUSTERS)
     shadow_key_from = _from_end(cfg.shadow_hit_key_from, cfg.max_bounces)
     shade_ext = (cfg.enable_specular or cfg.enable_emission
                  or cfg.enable_textures or cfg.enable_refraction)
@@ -336,7 +371,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                    + uv_y[:, None] * cam.up[None] + cam.forward[None])
     o = cam.position[None].expand(p, 3)
 
-    tracers = tuple(tracers or make_tracers(data, spec, tracer))
+    tracers = tuple(tracers or make_tracers(data, spec, tracer, block))
     closest_fn, any_fn = tracers[:2]
     closest_rank_fn = (tracers[2] if len(tracers) > 2 else
                        make_closest_rank(data, spec, cfg, tracer, closest_fn))
@@ -367,7 +402,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         bounce's sort keys from one ``nearest_cluster_pair`` sweep?  Only
         where both use the exact broad phase over the shared origin, which
         refraction breaks (a refracted ray starts inside the surface)."""
-        return (cfg.pair_broadphase and not fused_keys
+        return (cfg.pair_broadphase and not fused_keys and not exact
                 and not cfg.enable_refraction
                 and cfg.sort_key == "cluster2" and bounce < shadow_key_from
                 and shadow_sorts_at(bounce) and bounce + 1 < cfg.max_bounces
@@ -380,7 +415,16 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         broad phase proved can hit no cluster; None when the fold is off)
         and the sorted rank keys (None unless :func:`rank_at_sort`)."""
         known_miss = rank_keys = None
-        if cfg.sort_bounces:
+        if cfg.sort_bounces and exact:
+            # dir_major: direction octant, then origin Morton (the JAX
+            # package's key where the cluster keys are off)
+            octant = ((d[:, 0] > 0).to(torch.int32)
+                      + 2 * (d[:, 1] > 0).to(torch.int32)
+                      + 4 * (d[:, 2] > 0).to(torch.int32))
+            key = (octant << 27) | _morton_512(o, data)
+            key = torch.where(alive, key, _DEAD_KEY)
+            skey, perm = torch.sort(key)  # tie order is free
+        elif cfg.sort_bounces:
             # Live rays grouped by their nearest slab-hit cluster (and the
             # second nearest below it), then direction cone, then origin
             # Morton: neighbouring rays share their first traversal visits.
@@ -458,7 +502,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         alive = skey < _DEAD_KEY
         if rank_keys is not None:
             rank_keys = tuple(k[perm] for k in rank_keys)
-        if cfg.sort_bounces and cfg.cluster_miss_fold:
+        if cfg.sort_bounces and cfg.cluster_miss_fold and not exact:
             # the no-cluster group sits just below the dead sentinel
             known_miss = alive & ((skey >> (30 - cbits)) == nc_tot)
         return o, d, color, accum, idx, cur, alive, known_miss, rank_keys
@@ -472,12 +516,18 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         # Shadow origins are this bounce's scattered hit points and the
         # direction follows from the origin (it points at the light), so the
         # key is (nearest cluster the segment can hit, light, origin
-        # Morton).  A segment that overlaps no cluster is clear: with the
-        # fold it skips the kernel (global-set occlusion is already out of
+        # Morton), or (light, origin Morton) for the exact tracers.  A
+        # segment that overlaps no cluster is clear: with the fold it skips
+        # the kernel (global-set occlusion is already out of
         # ``kernel_shadow``).
         m = _morton_512(shadow_o, data)
         bits_l = max(1, (lcount - 1).bit_length())
-        if bounce >= shadow_key_from:
+        if exact:
+            # light-major: light, then origin Morton
+            shift = 29 - bits_l
+            skey = (light_idx << shift) | (m if shift >= 27
+                                           else m >> (27 - shift))
+        elif bounce >= shadow_key_from:
             # The ray starts on this bounce's hit triangle, inside its
             # cluster's box: that cluster is the key, for free (hits on the
             # global set form a group of their own), and the fold tests the
@@ -501,10 +551,11 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                                        data.clu_planes, bvh, max_t=sdist)
             if cfg.cluster_miss_fold:
                 kernel_shadow = kernel_shadow & (scid < nc_tot)
-        cbits_s = max(1, nc_tot.bit_length())
-        mbits_s = max(0, 30 - cbits_s - bits_l)
-        skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
-                | (m >> max(0, 27 - mbits_s)))
+        if not exact:
+            cbits_s = max(1, nc_tot.bit_length())
+            mbits_s = max(0, 30 - cbits_s - bits_l)
+            skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
+                    | (m >> max(0, 27 - mbits_s)))
         skey = torch.where(kernel_shadow, skey, _DEAD_KEY)
         skey, perm = torch.sort(skey)
         res = any_fn(shadow_o[perm], sdir[perm], sdist[perm],
@@ -521,8 +572,9 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         unless :func:`pair_at`)."""
         stats["closest_rays"] += alive.sum()
         mats = data.materials
-        # The closest pass is always seeded on the host side: the port's
-        # kernels have no in-kernel global-set test.
+        # The cluster tracers' closest pass is always seeded on the host
+        # side: the port's cluster kernels have no in-kernel global-set
+        # test.
         m_kernel = alive
         gkey = seed = None
         if known_miss is not None:
@@ -533,6 +585,8 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                 gkey = trace_cuda.global_seed_keys(o, d, alive,
                                                    data.tri_planes, bvh)
                 seed = torch.where(known_miss, trace_cuda._INIT_KEY, gkey)
+        elif exact:
+            pass  # the exact tracers test the global set themselves
         elif bvh.num_global and cfg.fused_broadphase:
             seed = _fused_keys(tracer, cfg, data, bvh, o, d, alive,
                                with_clusters=False)[2]
@@ -565,13 +619,17 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         row = data.shade_table[tri.long()]
         mid = row[:, 15].long() if shade_ext else None  # hit material
 
-        # Exact hit distance from the winner's plane [n, n.v0] in the shade
-        # row: t = (n.v0 - n.o) / (n.d); the tracer's t is chopped.
-        nrow = row[:, 16:19]
-        den = (nrow * d).sum(-1)
-        num = row[:, 19] - (nrow * o).sum(-1)
-        tiny = torch.where(den < 0, -1e-20, 1e-20).to(den.dtype)
-        t_hit = num / torch.where(den.abs() < 1e-20, tiny, den)
+        if exact:
+            t_hit = hit.t
+        else:
+            # Exact hit distance from the winner's plane [n, n.v0] in the
+            # shade row: t = (n.v0 - n.o) / (n.d); the tracer's t is
+            # chopped.
+            nrow = row[:, 16:19]
+            den = (nrow * d).sum(-1)
+            num = row[:, 19] - (nrow * o).sum(-1)
+            tiny = torch.where(den < 0, -1e-20, 1e-20).to(den.dtype)
+            t_hit = num / torch.where(den.abs() < 1e-20, tiny, den)
         # Dead lanes keep pos = o (no BIG_T overflow into the light math).
         pos = o + d * torch.where(alive, t_hit, 0.0)[:, None]
         # ns = M pos + m0: barycentric corner-normal interpolation

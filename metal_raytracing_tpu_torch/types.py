@@ -189,7 +189,7 @@ def pack_materials(materials: Sequence[Material]) -> MaterialTable:
         refraction_index=col("refraction_index"), dissolve=col("dissolve"))
 
 
-TRACERS = ("auto", "cuda", "torch")
+TRACERS = ("auto", "cuda", "torch", "bvh", "bruteforce")
 SORT_KEYS = ("cluster2", "cluster1")
 TEXTURE_FILTERS = ("nearest", "bilinear")
 
@@ -199,9 +199,20 @@ class RenderConfig:
     """Static render configuration, at the JAX package's defaults for every
     field the port carries (``metal_raytracing_tpu.types.RenderConfig``).
 
-    ``tracer``: ``"cuda"`` runs the hand-written kernels (CUDA tensors
-    only), ``"torch"`` their plain PyTorch versions on any device, and
-    ``"auto"`` follows the renderer's device.  ``host_seed`` folds the
+    ``tracer``: ``"cuda"`` runs the hand-written cluster kernels (CUDA
+    tensors only), ``"torch"`` their plain PyTorch versions on any device,
+    and ``"auto"`` follows the renderer's device (``cuda`` on a CUDA
+    device, ``torch`` elsewhere; the JAX package's ``auto`` means ``bvh``
+    off a TPU).  ``"bvh"`` and ``"bruteforce"`` are the JAX package's exact
+    tracers (``ops.trace``): the BVH walk, through ``closest_bvh_kernel`` /
+    ``any_bvh_kernel`` on a CUDA device and their plain packet versions on
+    the CPU, and the brute-force oracle, plain PyTorch on any device.  They
+    test the global set themselves and return the exact hit distance, so
+    the renderer takes the JAX package's non-Pallas path with them: no
+    host-side global passes, the ``dir_major`` bounce key and the
+    light-major shadow key under ``compaction``, and ``fused_broadphase``,
+    ``cluster_miss_fold``, ``pair_broadphase`` and ``rank_trace`` silently
+    off.  ``host_seed`` folds the
     global set's shadow occlusion into the shadow mask before the any-hit
     pass (the closest pass is always seeded on the host side; either value
     gives the same image).  ``fused_broadphase`` computes the global set's

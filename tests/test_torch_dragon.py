@@ -9,6 +9,11 @@ tracer on the CPU, where ``fused_broadphase`` changes nothing) gives the
 reference image; the port renders 1 spp at 32x24 at the default config and
 with ``fused_broadphase=True``.  The gate is the reference's golden gate
 (``tests/test_golden.py``): RMSE < 1e-3 and max pixel difference < 5e-2.
+
+The reference is the JAX package's own path off a TPU (``tracer="bvh"``,
+``compaction=True``), so the port's exact tracer on that path
+(``tracer="bvh", compaction=True``: the plain packet walk, the
+``dir_major`` and light-major sort keys) is held against the same image.
 """
 
 import numpy as np
@@ -64,6 +69,23 @@ def test_dragon_image_matches_reference(reference, fused):
     cfg = RenderConfig(width=W, height=H, fused_broadphase=fused)
     img, stats = R.render_sample(tdata, tspec, cfg,
                                  R.make_pixel_offsets(cfg), 0)
+    img = img.numpy()
+    assert img.shape == (H, W, 3) and np.isfinite(img).all()
+    assert img.max() > 0.01
+    assert rmse(jr.image, img) < 1e-3
+    assert np.abs(jr.image - img).max() < 5e-2
+    assert int(stats["closest_rays"]) == jr.total_closest_rays
+    assert int(stats["shadow_rays"]) == jr.total_shadow_rays
+
+
+def test_dragon_bvh_image_matches_reference(reference):
+    """The JAX CLI's path off a TPU, ported: the same image as the JAX
+    renderer's, under the golden gate."""
+    jr, tdata, tspec = reference
+    assert jr.cfg.compaction and jr.cfg.tracer == "auto"
+    cfg = RenderConfig(width=W, height=H, tracer="bvh", compaction=True)
+    img, stats = R.render_sample(tdata, tspec, cfg,
+                                 R.make_pixel_offsets(cfg), 0, tracer="bvh")
     img = img.numpy()
     assert img.shape == (H, W, 3) and np.isfinite(img).all()
     assert img.max() > 0.01

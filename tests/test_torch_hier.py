@@ -232,8 +232,8 @@ def test_build_compiles_every_kernel_source(tmp_path, monkeypatch):
     from metal_raytracing_tpu_torch.ops import _build
 
     names = [p.rsplit("/", 1)[-1] for p in _build.sources()]
-    assert names == ["broadphase.cu", "trace_flat.cu", "trace_hier.cu",
-                     "trace_rank.cu"]
+    assert names == ["broadphase.cu", "trace_bvh.cu", "trace_flat.cu",
+                     "trace_hier.cu", "trace_rank.cu"]
     path = _build._library_path()
     assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))

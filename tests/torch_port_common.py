@@ -28,7 +28,8 @@ def jax_scene_arrays(data) -> dict:
     return out
 
 
-def build_both(scene: str, width: int, height: int):
+def build_both(scene: str, width: int, height: int, cluster_size: int = 384,
+               branching: int = 8):
     """(JAX data, JAX spec, port data, port spec) of one JAX build of
     ``scene`` from the procedural stand-ins, carried to the port on the
     CPU."""
@@ -37,7 +38,8 @@ def build_both(scene: str, width: int, height: int):
                jproc.make_model(n))
     try:
         jdata, jspec = jlib.get_scene(scene, width, height).build(
-            cluster_size=384, builder="sah_free")
+            cluster_size=cluster_size, branching=branching,
+            builder="sah_free")
     finally:
         mp.undo()
     tdata, tspec = scene_data_from_reference(jax_scene_arrays(jdata), jspec,
