@@ -96,7 +96,30 @@ Phases, each of which raises (exit code != 0) on failure:
     rounds of 3 samples (ms/sample, device ms/sample, each bvh image
     against the cuda image at the golden gate, the BVH kernels' launches),
     and a 128x128 cross-check of the kernels' image against the plain
-    packet walk's.
+    packet walk's;
+16. the cluster builders and the traversal telemetry, on dragon 1024x1024
+    and coatball 1024x768: every builder (``sah_free``, ``sah``,
+    ``median``, ``morton``, ``sah_chunk``, ``ploc``, and ``sah_free`` with
+    the pre-split at 0.3) with its build seconds, clusters, super layout
+    and ``partial_clusters``; one sample's K1-K4 passes with
+    ``count_visits`` and, where the build marks partial clusters, with and
+    without ``counts``, bit-equal to the kernels without options on every
+    ray and, with the visits, to the walking plain versions on every 16th
+    (dragon) or 4th (coatball) ray, dragon's ``ploc`` build taking K3/K4
+    on wide supers (S = 232); each build's image after 7 samples against
+    ``sah_free``'s (RMSE < 1e-3, < 0.1% of pixels beyond 0.05); K6 on the
+    sorted bounce passes of ``compaction=True, rank_trace=2``, on the
+    ``sah_free`` build with visits and on the ``sah_chunk`` build (partly
+    full clusters) with visits, without and with ``counts``: the key and
+    base equal to K6 without options, and key, base and visits equal to
+    the walking plain version's with the same counts on every ray; ``ploc`` under ``compaction=True`` against ``False`` (the sort
+    keys' fallback above 4,095 padded clusters); ``Renderer.refine``
+    between two pairs of samples against the unrefined render; the
+    telemetry (``visit_percentiles``, ``wavefront_stats``) and a
+    ``profiling.trace`` holding the renderer's scope names; every dragon
+    build, and ``sah_chunk`` / ``ploc`` with ``chunk_skip``, in turns (two
+    rounds of 3 samples: ms/sample, device ms/sample, idle share,
+    launches).
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
 tables once) over 3.35 TB/s, the H100 SXM's published HBM rate, and its
@@ -137,7 +160,13 @@ global mode with the launches of ``fused_broadphase=True`` at
 ``compaction=False``, and its cluster-key mode with those of phase 12's
 ``compaction=True, fused_broadphase=True``; the two BVH kernels with
 phase 15's bvh launches, ``pallas_counterpart`` null and ``plain_ms`` of
-the plain packet walk on the ``plain_rays`` strided rays), and last the
+the plain packet walk on the ``plain_rays`` strided rays; K3/K4 on wide
+supers with phase 16's ploc launches, ``plain_ms`` of the walking plain
+version on its ``plain_rays``, and a bound whose operations are counted on
+two samples of every 61st ray, scaled to all rays; K1-K4 and K6 with
+``options_ms``, each option set's ms (``off``, ``visits``, and on the
+``sah_chunk`` build also ``visits+counts``) on phase 16's sah_free and
+sah_chunk primary passes (K6: their sorted bounce 1)), and last the
 line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits with an error and
 renders nothing (there is no CPU fallback).
@@ -145,6 +174,8 @@ renders nothing (there is no CPU fallback).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import functools
 import json
 import statistics
@@ -577,42 +608,23 @@ def walk_bound(visits, n, n_live, data, spec, closest):
     return bound(nbytes, ops)
 
 
-def walking_ref(spec):
-    """(closest, any) plain versions that walk as the scene's kernels do,
-    with the hierarchical ones' signatures."""
-    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-
-    if not TC._use_flat(spec.bvh):
-        return TC.closest_hier_ref, TC.any_hier_ref
-
-    def closest(o, d, m, sup, clu, tri, bvh, seed, seed_base, rounds):
-        assert seed_base is None, "the flat kernel takes no seed_base"
-        return TC.closest_flat_walk_ref(o, d, m, clu, tri, bvh, seed,
-                                        rounds=rounds)
-
-    def any_(o, d, mt, m, sup, clu, tri, bvh, rounds):
-        return TC.any_flat_walk_ref(o, d, mt, m, clu, tri, bvh, rounds=rounds)
-
-    return closest, any_
-
-
 def walk_tracers(data, spec):
     """``make_tracers``' (closest, any_hit) pair on the plain versions that
     walk as the scene's kernels do."""
     import torch
 
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
     from metal_raytracing_tpu_torch.ops.intersect import Hit
 
-    walk_closest, walk_any = walking_ref(spec)
     tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
 
     def closest(o, d, m, seed, seed_base=None):
-        t, tri, _ = walk_closest(o, d, m, *tabs, seed, seed_base, rounds=None)
+        t, tri, _ = TC.closest_walk_ref(o, d, m, *tabs, seed, seed_base)
         z = torch.zeros_like(t)
         return Hit(t=t, u=z, v=z, tri=tri)
 
     def any_hit(o, d, mt, m):
-        return walk_any(o, d, mt, m, *tabs, rounds=None)[0]
+        return TC.any_walk_ref(o, d, mt, m, *tabs)[0]
 
     return closest, any_hit
 
@@ -629,9 +641,9 @@ def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
     run = lambda: TC.trace_closest(o, d, m, *tabs, seed, seed_base=seed_base)
     hit = run()
     rounds = []
-    walk = walking_ref(spec)[0]
     plain_ms, (t_ref, tri_ref, visits) = cuda_call(
-        lambda: walk(o, d, m, *tabs, seed, seed_base, rounds=rounds))
+        lambda: TC.closest_walk_ref(o, d, m, *tabs, seed, seed_base,
+                                    rounds=rounds))
     match, n_bad, worst = near_ties(o, d, m, hit.tri, tri_ref,
                                     data.tri_planes)
     both = m & (hit.tri == tri_ref) & (tri_ref >= 0)
@@ -669,9 +681,8 @@ def check_walk_any(name, args, data, spec, before=None):
     run = lambda: TC.trace_any(o, d, mt, m, *tabs)
     occ = run()
     rounds = []
-    walk = walking_ref(spec)[1]
     plain_ms, (ref, visits) = cuda_call(
-        lambda: walk(o, d, mt, m, *tabs, rounds=rounds))
+        lambda: TC.any_walk_ref(o, d, mt, m, *tabs, rounds=rounds))
     n_live = int(m.sum())
     n_bad = int(((occ != ref) & m).sum())
     match = 1.0 - n_bad / max(n_live, 1)
@@ -1668,6 +1679,402 @@ def bvh_cross_check(size):
     assert err < IMAGE_RMSE, err
 
 
+# Phase 16's builds: (label, RenderConfig keywords), the default first.
+BUILDS = (
+    ("sah_free", {}),
+    ("sah", dict(bvh_builder="sah")),
+    ("median", dict(bvh_builder="median")),
+    ("morton", dict(bvh_builder="morton")),
+    ("sah_chunk", dict(bvh_builder="sah_chunk")),
+    ("ploc", dict(bvh_builder="ploc")),
+    ("sah_free presplit 0.3", dict(bvh_presplit=0.3)),
+)
+# Every BUILD_STRIDE-th ray of a pass is held against the walking plain
+# versions (a ploc pass walks thousands of clusters a warp).  The bounds of
+# the wide kernels count the operations on two samples of every
+# BOUND_STRIDE-th ray, at offsets 0 and BOUND_STRIDE // 2 (a stride prime to
+# the image width, so that a sample is not a set of fixed columns), each
+# scaled by N / its rays; the bound takes their mean and the log prints
+# their spread.
+BUILD_STRIDE = {"dragon": 16, "coatball": 4}
+BOUND_STRIDE = 61
+BUILD_SAMPLES = 7  # samples of each build's image, held against sah_free's
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def check_options(name, calls, data, spec, stride):
+    """Phase 16: every recorded closest and any-hit pass of one sample
+    through the kernels with ``count_visits`` and, on a build that marks
+    ``partial_clusters``, with and without ``counts``: the results bit-equal
+    to the kernels without options on every ray, and results and visits
+    equal to the walking plain versions (with the same counts) on every
+    ``stride``-th ray.  Returns each option set's ms on the primary pass
+    ({"off", "visits", "visits+counts"} for closest and any)."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    bvh = spec.bvh
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, bvh)
+    cset = (None, data.clu_counts) if bvh.partial_clusters else (None,)
+    ms = {}
+    for kind in ("closest", "any"):
+        for b, args in enumerate(calls[kind]):
+            sl = _strided(args, stride)
+            if kind == "closest":
+                o, d, m, seed = args
+                plain = lambda **kw: TC.trace_closest(o, d, m, *tabs, seed,
+                                                      **kw)
+            else:
+                o, d, mt, m = args
+                plain = lambda **kw: TC.trace_any(o, d, mt, m, *tabs, **kw)
+            ref = plain()
+            ref = (ref.t, ref.tri) if kind == "closest" else (ref,)
+            line = []
+            for cnt in cset:
+                res, vis = plain(count_visits=True, counts=cnt)
+                got = (res.t, res.tri) if kind == "closest" else (res,)
+                assert all(_same_bits(x, y) for x, y in zip(got, ref)), (
+                    name, kind, b, "options changed the result")
+                if kind == "closest":
+                    w = TC.closest_walk_ref(*sl[:3], *tabs, sl[3],
+                                            counts=TC.active_counts(bvh, cnt))
+                else:
+                    w = TC.any_walk_ref(*sl, *tabs,
+                                        counts=TC.active_counts(bvh, cnt))
+                got_s = tuple(x[::stride] for x in got) + (vis[::stride],)
+                assert all(_same_bits(x, y) for x, y in zip(got_s, w)), (
+                    name, kind, b, "not equal to the walking plain version")
+                tag = "visits" if cnt is None else "visits+counts"
+                if b == 0:
+                    ms[f"{kind} off"] = cuda_ms(plain, 5)
+                    ms[f"{kind} {tag}"] = cuda_ms(
+                        lambda: plain(count_visits=True, counts=cnt), 5)
+                live = m.nonzero()[:, 0]
+                v = vis[live].float()
+                line.append(f"{tag}: bit-equal, visits equal on "
+                            f"{int(sl[2 if kind == 'closest' else 3].sum())}"
+                            f" strided live rays, mean {float(v.mean()):.3f}"
+                            f" max {int(v.max()) if v.numel() else 0}")
+            log(f"    {name} {kind} bounce {b} ({int(m.sum())} live): "
+                + "; ".join(line))
+    return ms
+
+
+def _sampled_ops(work, n, args):
+    """Operations of a whole pass of ``n`` rays from two strided samples of
+    ``args`` (BOUND_STRIDE, offsets 0 and BOUND_STRIDE // 2):
+    ``work(*sample)`` gives (bytes, operations) of one sample.  Returns
+    (the samples' bytes at offset 0, the rays of that sample, the mean of
+    the two scaled operation counts, their spread over the mean)."""
+    scaled = []
+    for off in (0, BOUND_STRIDE // 2):
+        sample = tuple(a[off::BOUND_STRIDE].contiguous() for a in args)
+        nb, ops = work(*sample)
+        scaled.append(ops * n / sample[0].shape[0])
+        if off == 0:
+            nb0, rays0 = nb, sample[0].shape[0]
+    mean = sum(scaled) / 2
+    return nb0, rays0, mean, abs(scaled[1] - scaled[0]) / max(mean, 1.0)
+
+
+def wide_kernel_rows(calls, data, spec, counts):
+    """The kernels line's rows of K3/K4 on wide supers: the primary
+    passes of dragon's ploc build, with the walking plain versions timed
+    on every BUILD_STRIDE-th ray and the bound's operations counted on two
+    strided samples (:func:`_sampled_ops`)."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    bvh = spec.bvh
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, bvh)
+    st = BUILD_STRIDE["dragon"]
+    rows = {}
+    o, d, m, seed = calls["closest"][0]
+    n = o.shape[0]
+    hit = TC.trace_closest(o, d, m, *tabs, seed)
+    ms = cuda_ms(lambda: TC.trace_closest(o, d, m, *tabs, seed), 5)
+    sl = _strided((o, d, m, seed), st)
+    plain_ms, _ = cuda_call(lambda: TC.closest_walk_ref(*sl[:3], *tabs,
+                                                        sl[3]))
+    nb, rays, ops, spread = _sampled_ops(
+        lambda so, sd, sm, st_: trace_work(so, sd, sm, data, spec, True,
+                                           t_final=st_),
+        n, (o, d, m, hit.t))
+    nb += (n - rays) * (12 + 12 + 1 + 4 + 4 + 4)
+    rows["closest"] = {"ms": ms, "plain_ms": plain_ms,
+                       "plain_rays": int(sl[0].shape[0]),
+                       "bound": bound(nb, ops), "spread": spread,
+                       "launches": counts["closest_hier"], "err": 0.0}
+    o, d, mt, m = calls["any"][0]
+    occ = TC.trace_any(o, d, mt, m, *tabs)
+    ms = cuda_ms(lambda: TC.trace_any(o, d, mt, m, *tabs), 5)
+    sl = _strided((o, d, mt, m), st)
+    plain_ms, _ = cuda_call(lambda: TC.any_walk_ref(*sl, *tabs))
+    nb, rays, ops, spread = _sampled_ops(
+        lambda so, sd, smt, sm, socc: trace_work(so, sd, sm, data, spec,
+                                                 True, max_t=smt, occ=socc),
+        n, (o, d, mt, m, occ))
+    nb += (n - rays) * (12 + 12 + 4 + 1 + 1)
+    rows["any"] = {"ms": ms, "plain_ms": plain_ms,
+                   "plain_rays": int(sl[0].shape[0]),
+                   "bound": bound(nb, ops), "spread": spread,
+                   "launches": counts["any_hier"], "err": 0.0}
+    for k, r in rows.items():
+        log(f"  K{3 if k == 'closest' else 4} on wide supers (S = "
+            f"{data.clu_planes.shape[1]}), dragon ploc primary pass: "
+            f"{r['ms']:.3f} ms, walking plain {r['plain_ms']:.3f} ms on "
+            f"{r['plain_rays']} rays, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}; operations from one ray in {BOUND_STRIDE} "
+            f"at two offsets, scaled to all rays, spread "
+            f"{r['spread']:.4f})")
+    return rows
+
+
+def gate_image(label, img, ref, card, rmse_gate=IMAGE_RMSE):
+    """Phase 16's image gate against sah_free's: RMSE, and the share of
+    pixels beyond the golden max under 0.1% (the two builds break contact
+    ties apart, as phase 15's tracers do)."""
+    from metal_raytracing_tpu_torch.io.image import rmse
+
+    assert bool(np.isfinite(img).all()) and float(img.max()) > 0.01, label
+    err = rmse(img, ref)
+    over = float((np.abs(img - ref).max(axis=-1) >= GOLDEN_MAX).mean())
+    log(f"    {label}: RMSE {err:.3e} (gate < {rmse_gate}), max "
+        f"{float(np.abs(img - ref).max()):.3e}, {over:.2e} of the pixels >= "
+        f"{GOLDEN_MAX} (gate < {1 - MIN_MATCH:.0e}); on {card}")
+    assert err < rmse_gate and over < 1 - MIN_MATCH, (label, err, over)
+
+
+def with_config(renderer, **kw):
+    """A renderer over the same build with other config fields."""
+    r = copy.copy(renderer)
+    r.cfg = dataclasses.replace(renderer.cfg, **kw)
+    r.reset()
+    return r
+
+
+def builders(card):
+    """Phase 16: the cluster builders and the traversal telemetry.  Returns
+    (launches of K3/K4 on dragon's ploc build over its timed rounds, the
+    kernels line's wide rows, each K's option ms on dragon's sah_free
+    primary pass, K6's option ms)."""
+    import torch
+
+    from metal_raytracing_tpu_torch import renderer as R
+    from metal_raytracing_tpu_torch.ops import rank_cuda as RK
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils import profiling
+    from metal_raytracing_tpu_torch.utils.metrics import (profile_renderer,
+                                                          visit_percentiles,
+                                                          wavefront_stats)
+
+    kept = {}
+    option_ms = {}
+    wide = None
+    for name, (w, h) in (("dragon", DRAGON), ("coatball", COATBALL)):
+        log(f"  {name} {w}x{h}: builds, each build's passes with the "
+            f"options, its image after {BUILD_SAMPLES} samples vs sah_free's")
+        ref = None
+        for label, kw in BUILDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = R.Renderer(get_scene(name, w, h),
+                           RenderConfig(width=w, height=h, **kw),
+                           device="cuda")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            bvh = r.spec.bvh
+            s_per, ns = TC.super_layout(bvh)
+            log(f"   {label}: build {sec:.2f} s, {bvh.num_clusters} clusters "
+                f"({bvh.num_triangles} triangles), S {s_per} x {ns} supers, "
+                f"flat {TC._use_flat(bvh)}, partial_clusters "
+                f"{bvh.partial_clusters}")
+            calls = record_passes(r)
+            ms = check_options(f"{name} {label}", calls, r.data, r.spec,
+                               BUILD_STRIDE[name])
+            if label in ("sah_free", "sah_chunk"):  # the kernels line's
+                pre = "" if label == "sah_free" else f"{label} "
+                option_ms.setdefault(name, {}).update({
+                    k.replace(" ", f" {pre}", 1): v for k, v in ms.items()})
+            log(f"    primary-pass ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ms.items()))
+            img = r.render(BUILD_SAMPLES)
+            if ref is None:
+                ref = img
+            else:
+                gate_image(f"{name} {label} vs sah_free", img, ref, card)
+            if name == "dragon" and label == "ploc":
+                ploc_calls = calls
+            del calls
+            if name == "dragon":
+                kept[label] = r
+            else:
+                del r
+            torch.cuda.empty_cache()
+
+    w, h = DRAGON
+    base = kept["sah_free"]
+    ploc = kept["ploc"]
+    # K6 on the sorted bounce passes: on sah_free's build with visits
+    # against K6 without; on sah_chunk's (partly full clusters) with visits,
+    # with counts off and on; each against the walking plain version with
+    # the same counts, key, base and visits on every ray
+    k6_ms = {}
+    for label in ("sah_free", "sah_chunk"):
+        r = kept[label]
+        pre = "" if label == "sah_free" else f"{label} "
+        bvh = r.spec.bvh
+        cset = (None, r.data.clu_counts) if bvh.partial_clusters else (None,)
+        calls = record_passes(with_config(r, **SLICE))
+        assert calls["rank"], (label, "the rank walk did not run")
+        for b, (o, d, m, keys, seed) in enumerate(calls["rank"], start=1):
+            args = (o, d, m, list(keys[:2]), r.data.tri_planes, bvh, seed)
+            key, kbase = RK.trace_closest_rank(*args)
+            line = []
+            for cnt in cset:
+                got = RK.trace_closest_rank(*args, count_visits=True,
+                                            counts=cnt)
+                wk = RK.closest_rank_walk_ref(
+                    *args, counts=TC.active_counts(bvh, cnt))
+                assert torch.equal(got[0], key) and torch.equal(
+                    got[1], kbase), (label, b, "options changed K6")
+                assert all(torch.equal(x, y) for x, y in zip(got, wk[:3])), (
+                    label, b, cnt is not None, "K6 vs the walking plain")
+                tag = "visits" if cnt is None else "visits+counts"
+                if b == 1:
+                    k6_ms[pre + tag] = cuda_ms(
+                        lambda: RK.trace_closest_rank(
+                            *args, count_visits=True, counts=cnt), 10)
+                line.append(f"{tag}: key, base and visits equal to the "
+                            f"walking plain version's on every ray (mean "
+                            f"{float(got[2][m].float().mean()):.3f} a live "
+                            f"ray)")
+            if b == 1:
+                k6_ms[pre + "off"] = cuda_ms(
+                    lambda: RK.trace_closest_rank(*args), 10)
+            log(f"    K6 {label} sorted bounce {b} ({int(m.sum())} live): "
+                + "; ".join(line))
+        del calls
+    log("    K6 sorted bounce 1 ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in k6_ms.items()))
+
+    # the 4,095-cluster fallback: ploc under compaction=True and False
+    nc_tot = ploc.data.clu_planes.shape[0] * ploc.data.clu_planes.shape[1]
+    imgs = []
+    for comp in (False, True):
+        cfg = dataclasses.replace(ploc.cfg, compaction=comp)
+        acc = None
+        for i in range(2):
+            img, _ = R.render_sample(ploc.data, ploc.spec, cfg, ploc.offsets,
+                                     i, "cuda")
+            acc = img if acc is None else R.accumulate(acc, img, i)
+        imgs.append(acc.cpu().numpy())
+    from metal_raytracing_tpu_torch.io.image import rmse
+
+    err = rmse(imgs[1], imgs[0])
+    log(f"  the fallback above 4,095 padded clusters: dragon ploc "
+        f"({nc_tot} padded) compaction=True vs False, 2 samples: RMSE "
+        f"{err:.3e} (gate < {SAME_IMAGE_RMSE})")
+    assert nc_tot > 4095 and err < SAME_IMAGE_RMSE, err
+
+    # feedback: 2 samples, refine, 2 more, against the unrefined render
+    fb = R.Renderer(get_scene("dragon", w, h),
+                    RenderConfig(width=w, height=h), device="cuda")
+    before = profile_renderer(fb, 2)
+    t0 = time.perf_counter()
+    ok = fb.refine()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    after = profile_renderer(fb, 2)
+    assert ok
+    acc = None
+    for i in range(4):
+        img, _ = R.render_sample(base.data, base.spec, fb.cfg, fb.offsets, i,
+                                 "cuda")
+        acc = img if acc is None else R.accumulate(acc, img, i)
+    log(f"  feedback: refine() {ref_s:.2f} s, {base.spec.bvh.num_clusters} "
+        f"-> {fb.spec.bvh.num_clusters} clusters (sah_rays, partial "
+        f"{fb.spec.bvh.partial_clusters}); device "
+        f"{before.device_ms_per_sample:.3f} ms/sample before, "
+        f"{after.device_ms_per_sample:.3f} after; on {card}")
+    gate_image("refined vs unrefined, 4 samples", fb.image,
+               acc.cpu().numpy(), card)
+    del fb
+
+    # telemetry and the profiler's scopes
+    tcfg = dataclasses.replace(base.cfg, telemetry=True)
+    _, stats = R.render_sample(base.data, base.spec, tcfg, base.offsets, 0,
+                               "cuda")
+    log(f"  visit_percentiles: {visit_percentiles(stats, w * h)}")
+    wave = wavefront_stats(base.data, base.spec, base.cfg, base.offsets,
+                           "cuda")
+    log(f"  wavefront_stats: {wave}")
+    trace_dir = "build/phase16_trace"
+    with profiling.trace(trace_dir):  # compaction=True: every layer runs
+        R.render_sample(base.data, base.spec,
+                        dataclasses.replace(base.cfg, compaction=True),
+                        base.offsets, 0, "cuda")
+    with open(f"{trace_dir}/{profiling.TRACE_FILE}") as f:
+        text = f.read()
+    missing = [sc for sc in profiling.SCOPES if f'"{sc}"' not in text]
+    log(f"  profiling.trace wrote {len(text)} bytes to {trace_dir}/"
+        f"{profiling.TRACE_FILE}; scopes present: "
+        f"{[sc for sc in profiling.SCOPES if sc not in missing]}")
+    assert not missing, missing
+
+    # timing: every build, and sah_chunk / ploc with chunk_skip, in turns
+    runs = [(label, r) for label, r in kept.items()] + [
+        (f"{label} chunk_skip", with_config(kept[label], chunk_skip=True))
+        for label in ("sah_chunk", "ploc")]
+    for _, r in runs:
+        r.render(1)  # warm-up
+    torch.cuda.synchronize()
+    ms = {label: [] for label, _ in runs}
+    per = {}
+    ploc_counts = {}
+    for _ in range(ROUNDS):
+        for label, r in runs:
+            TC.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(ROUND_SAMPLES)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) / ROUND_SAMPLES * 1e3)
+            counts = launch_counts()
+            per[label] = {k: v / ROUND_SAMPLES for k, v in counts.items()
+                          if v}
+            assert counts["closest_hier"] == 3 * ROUND_SAMPLES, (label, counts)
+            assert counts["any_hier"] == 3 * ROUND_SAMPLES, (label, counts)
+            if label == "ploc":
+                ploc_counts = {k: v + ploc_counts.get(k, 0)
+                               for k, v in counts.items()}
+    for label, r in runs:
+        prof = profile_renderer(r, 2)
+        dev = prof.device_ms_per_sample
+        kern = {k: v / prof.samples for name, v, _ in prof.kernels
+                for k in ("closest_hier_kernel", "any_hier_kernel")
+                if k in name}
+        log(f"  dragon {w}x{h} {label}: " + " / ".join(
+            f"{x:.3f}" for x in ms[label]) + f" ms/sample; device {dev:.3f} "
+            f"ms/sample ({prof.launches // prof.samples} kernels/sample; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in kern.items())
+            + f" ms/sample); idle {1 - dev / min(ms[label]):.3f} of the "
+            f"fastest round; launches/sample {per[label]}; on {card}")
+    wide = wide_kernel_rows(ploc_calls, ploc.data, ploc.spec, ploc_counts)
+    del kept, runs, base, ploc, ploc_calls
+    torch.cuda.empty_cache()
+    return wide, option_ms, k6_ms
+
+
 def main() -> int:
     import torch
 
@@ -1927,6 +2334,14 @@ def main() -> int:
     bvh_cross_check((128, 128))
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
+    # ---- phase 16: the cluster builders and the traversal telemetry
+    t16 = time.perf_counter()
+    log("phase 16: every cluster builder on dragon and coatball, the "
+        "kernels' counts and visits, wide supers, the fallback above 4,095 "
+        "clusters, feedback, telemetry")
+    wide, option_ms, k6_ms = builders(card)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
     kernels = []
     modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries
     for key, name, src, line, first in (
@@ -1954,6 +2369,17 @@ def main() -> int:
         if key in walked:  # the walking plain version on the same pass
             kernels[-1]["plain_walk_ms"] = walked[key][0]["plain_walk_ms"]
             kernels[-1]["walk_bound_ms"] = walked[key][0]["walk_bound"][0]
+        # phase 16: the same pass's ms without and with the visits output
+        scene, kind = {"K1": ("coatball", "closest"),
+                       "K2": ("coatball", "any"),
+                       "K3": ("dragon", "closest"),
+                       "K4": ("dragon", "any")}.get(key, (None, None))
+        if scene:
+            kernels[-1]["options_ms"] = {
+                k.split(" ", 1)[1]: v for k, v in option_ms[scene].items()
+                if k.startswith(kind)}
+        elif key == "K6":
+            kernels[-1]["options_ms"] = k6_ms
     for query, name, line in (("closest", "closest_bvh_kernel", 125),
                               ("any", "any_bvh_kernel", 219)):
         first = bvh[query][0]  # dragon's primary pass
@@ -1966,6 +2392,17 @@ def main() -> int:
             "plain_rays": first["plain_rays"],
             "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
             "library_ms": None})
+    for query, name, line in (("closest", "closest_hier_kernel", 1139),
+                              ("any", "any_hier_kernel", 1653)):
+        r = wide[query]  # phase 16: dragon's ploc build, S > 32
+        kernels.append({
+            "name": f"{name} wide", "route": "cuda",
+            "source": CSRC + "trace_hier.cu",
+            "replaces": f"{PALLAS}:{line}", "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "plain_rays": r["plain_rays"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": LIBRARY})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,10 @@ extension on: specular for coatball, the environment map for bunny_env (or
 any scene with a map), textures for uv_test, refraction for glass_sphere.
 ``parity`` renders one scene, with those defaults, through the CUDA kernels
 and through their plain versions on one CUDA device and reports the RMSE
-between the two images; it refuses any other device.
+between the two images; it refuses any other device.  ``--bvh-builder``
+picks the leaf clustering (the JAX CLI's choices), and ``--feedback N``
+rebuilds the clusters to the measured rays after N samples
+(``Renderer.refine``) and goes on: the same image.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ def _parse_size(s: str):
     return int(w), int(h or w)
 
 
+# The JAX CLI's --bvh-builder choices (sah_rays takes a measured sample,
+# which --feedback gives).
+BUILDER_CHOICES = ("sah", "sah_free", "sah_chunk", "median", "morton", "ploc")
+
 # What ``render_config`` reads of the shading flags where a command has
 # none of them: every extension off but the scene's own.
 _NO_SHADING_FLAGS = dict(env_map=False, specular=False, emission=False,
@@ -57,6 +64,9 @@ def _add_scene_args(p: argparse.ArgumentParser, scene: str, size) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
+    p.add_argument("--bvh-builder", default=RenderConfig.bvh_builder,
+                   choices=BUILDER_CHOICES,
+                   help="leaf clustering strategy (RenderConfig.bvh_builder)")
 
 
 def _add_shading_args(p: argparse.ArgumentParser) -> None:
@@ -103,6 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--rank-trace", type=int, default=0, choices=(0, 2),
                    help="with --compaction: rank-directed closest walk over "
                         "this many candidate clusters a ray (0 = off)")
+    r.add_argument("--feedback", type=int, default=0, metavar="N",
+                   help="after N samples, rebuild the clusters to the "
+                        "measured rays (Renderer.refine, the sah_rays "
+                        "builder) and go on; the same image")
     r.add_argument("--quiet", action="store_true")
 
     sub.add_parser("scenes", help="list available scenes")
@@ -130,7 +144,7 @@ def render_config(args, scene, **kw) -> RenderConfig:
         enable_textures=args.textures or scene.name == "uv_test",
         texture_filter=args.texture_filter,
         enable_refraction=args.refraction or scene.name == "glass_sphere",
-        **kw)
+        bvh_builder=args.bvh_builder, **kw)
 
 
 def cmd_render(args) -> int:
@@ -157,8 +171,17 @@ def cmd_render(args) -> int:
     tonemap = not args.no_tonemap
     t0 = time.perf_counter()
     rays0 = renderer.total_closest_rays + renderer.total_shadow_rays
+    feedback_at = args.feedback if args.feedback > 0 else None
     while renderer.frame_index < args.spp:
         renderer.step(1)
+        if feedback_at and renderer.frame_index >= feedback_at:
+            feedback_at = None
+            ok = renderer.refine()
+            if not args.quiet:
+                print(f"\nfeedback rebuild at sample {renderer.frame_index}"
+                      f": " + (f"{renderer.spec.bvh.num_clusters} clusters"
+                               if ok else "no sample (skipped)"),
+                      file=sys.stderr)
         if args.save_every and renderer.frame_index % args.save_every == 0:
             image_io.write_png(args.out, renderer.image, tonemap=tonemap)
             if args.checkpoint:

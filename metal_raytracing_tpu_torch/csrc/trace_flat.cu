@@ -53,7 +53,10 @@
 //
 // Static shared memory: the boxes (3 KB) and the block's rays (6 KB).
 // Tensor cores do not apply (trace_hier.cu).  Numerics and the packed key:
-// see trace_common.cuh.
+// see trace_common.cuh.  The TPU kernels' `counts` and `count_visits`
+// options are nullable pointers, as in trace_hier.cu: `counts` ends a
+// cluster's leaf test at its last real slot, `visits` receives the clusters
+// each ray dense-tested (the global test is not a visit).
 
 #include "trace_warp.cuh"
 
@@ -122,15 +125,17 @@ __device__ __forceinline__ int next_box_coop(const float* s_box, int ncp,
 // g_base; each round every walking lane picks the nearest unvisited cluster
 // whose entry lies below t(best key), and the warp serves the requests; a
 // cluster's key replaces the best only when strictly smaller.  Writes the
-// best key's chopped t and its slot (-1 on a miss).
+// best key's chopped t and its slot (-1 on a miss).  `counts` and `visits`
+// may be null.
 __global__ void __launch_bounds__(kThreads)
 closest_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const unsigned char* __restrict__ mask,
                     const int* __restrict__ seed,
                     const float* __restrict__ clu,
                     const float* __restrict__ tri, int n, int ncp,
-                    int c_size, int T, int g_base, float* __restrict__ t_out,
-                    int* __restrict__ tri_out) {
+                    int c_size, int T, int g_base,
+                    const int* __restrict__ counts, float* __restrict__ t_out,
+                    int* __restrict__ tri_out, int* __restrict__ visits) {
   __shared__ float s_box[kMaxClusters * 6];
   __shared__ float4 s_ray[3 * kThreads];
   load_shared(clu, ncp * 6, s_box);
@@ -146,6 +151,7 @@ closest_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (walking) ray = load_ray(o, d, r);
   store_ray(s_ray, ray, kBigT);
   unsigned vis[4] = {0u, 0u, 0u, 0u};
+  int nvis = 0;
   while (true) {
     int req = __popc(__ballot_sync(kFull, walking)) <= kCoopMax
                   ? next_box_coop(s_box, ncp, rays, kBigT, key_to_t(key), vis,
@@ -154,12 +160,14 @@ closest_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                              walking);
     unsigned pending = __ballot_sync(kFull, req >= 0);
     if (!pending) break;
+    nvis += req >= 0;
     while (pending) {
       int c = __shfl_sync(kFull, req, __ffs(pending) - 1);
       unsigned group = __ballot_sync(kFull, req == c);
       pending &= ~group;
       int cbase = c * c_size;
-      int vkey = serve_closest(tri, T, cbase, c_size, group, rays, lane);
+      int count = counts ? __ldg(counts + c) : c_size;
+      int vkey = serve_closest(tri, T, cbase, count, group, rays, lane);
       if (req == c && vkey < key) {
         key = vkey;
         base = cbase;
@@ -169,13 +177,15 @@ closest_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (inside) {
     t_out[r] = key_to_t(key);
     tri_out[r] = key < miss_key() ? base + (key & kIdxMask) : -1;
+    if (visits) visits[r] = nvis;
   }
 }
 
 // Any hit (replaces _any_flat_kernel, trace_pallas.py:1957) over the ray
 // segment (1e-6, max_t]: the g_slots real global slots first, each lane its
 // own ray, in a loop with one exit; then the walk in entry order with the
-// max_t slab bound, each ray leaving at its first occluder.
+// max_t slab bound, each ray leaving at its first occluder.  `counts` and
+// `visits` as closest_flat_kernel.
 __global__ void __launch_bounds__(kThreads)
 any_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ max_t,
@@ -183,7 +193,8 @@ any_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ clu,
                 const float* __restrict__ tri, int n, int ncp, int c_size,
                 int T, int g_base, int g_slots,
-                bool* __restrict__ occ_out) {
+                const int* __restrict__ counts, bool* __restrict__ occ_out,
+                int* __restrict__ visits) {
   __shared__ float s_box[kMaxClusters * 6];
   __shared__ float4 s_ray[3 * kThreads];
   load_shared(clu, ncp * 6, s_box);
@@ -210,6 +221,7 @@ any_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
   __syncwarp();
   bool walking = live && !occ;
   unsigned vis[4] = {0u, 0u, 0u, 0u};
+  int nvis = 0;
   while (true) {
     walking = walking && !occ;  // an occluded ray has left the walk
     int req = __popc(__ballot_sync(kFull, walking)) <= kCoopMax
@@ -218,16 +230,21 @@ any_flat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   : next_box(s_box, ncp, ray, tmax, kBigT, vis, walking);
     unsigned pending = __ballot_sync(kFull, req >= 0);
     if (!pending) break;
+    nvis += req >= 0;
     while (pending) {
       int c = __shfl_sync(kFull, req, __ffs(pending) - 1);
       unsigned group = __ballot_sync(kFull, req == c);
       pending &= ~group;
-      unsigned hit_by = serve_any(tri, T, c * c_size, c_size, group, rays,
+      int count = counts ? __ldg(counts + c) : c_size;
+      unsigned hit_by = serve_any(tri, T, c * c_size, count, group, rays,
                                   lane);
       occ = occ || ((hit_by >> lane) & 1u);
     }
   }
-  if (inside) occ_out[r] = occ;
+  if (inside) {
+    occ_out[r] = occ;
+    if (visits) visits[r] = nvis;
+  }
 }
 
 }  // namespace
@@ -236,32 +253,37 @@ extern "C" {
 
 // Plain C entry points for ctypes.  `clu` holds the ncp cluster boxes
 // (ncp, 6); `seed` may be null (no seed); `g_slots` is the number of real
-// global slots from g_base on.  Each launches on the given stream,
+// global slots from g_base on; `counts` (i32 per cluster slot) and `visits`
+// (i32 per ray, written) may be null.  Each launches on the given stream,
 // allocates nothing, and returns cudaGetLastError() of its launch.
 
 int launch_closest_flat(const void* o, const void* d, const void* mask,
                         const void* seed, const void* clu, const void* tri,
                         int n, int ncp, int c_size, int T, int g_base,
-                        void* t_out, void* tri_out, void* stream) {
+                        const void* counts, void* t_out, void* tri_out,
+                        void* visits, void* stream) {
   if (ncp > kMaxClusters) return (int)cudaErrorInvalidValue;
   int blocks = (n + kThreads - 1) / kThreads;
   closest_flat_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)o, (const float*)d, (const unsigned char*)mask,
       (const int*)seed, (const float*)clu, (const float*)tri, n, ncp, c_size,
-      T, g_base, (float*)t_out, (int*)tri_out);
+      T, g_base, (const int*)counts, (float*)t_out, (int*)tri_out,
+      (int*)visits);
   return (int)cudaGetLastError();
 }
 
 int launch_any_flat(const void* o, const void* d, const void* max_t,
                     const void* mask, const void* clu, const void* tri, int n,
                     int ncp, int c_size, int T, int g_base, int g_slots,
-                    void* occ_out, void* stream) {
+                    const void* counts, void* occ_out, void* visits,
+                    void* stream) {
   if (ncp > kMaxClusters) return (int)cudaErrorInvalidValue;
   int blocks = (n + kThreads - 1) / kThreads;
   any_flat_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)o, (const float*)d, (const float*)max_t,
       (const unsigned char*)mask, (const float*)clu, (const float*)tri, n,
-      ncp, c_size, T, g_base, g_slots, (bool*)occ_out);
+      ncp, c_size, T, g_base, g_slots, (const int*)counts, (bool*)occ_out,
+      (int*)visits);
   return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,10 @@
 // a hit from a cluster outside a ray's K candidates lies beyond its
 // rank-(K+1) entry (PERF.md).
 //
+// The TPU kernel's `counts` and `count_visits` options are nullable
+// pointers, as in trace_hier.cu: `counts` ends a cluster's leaf test at its
+// last real slot, `visits` receives the clusters each ray dense-tested.
+//
 // Numerics and the packed key: see trace_common.cuh.
 
 #include "trace_warp.cuh"
@@ -68,6 +72,7 @@ __device__ __forceinline__ int nc_sentinel() {
 // keys: (ranks, n) packed candidate keys, rank 1 first.  seed may be null:
 // then a ray starts from the init key with base 0, as the TPU kernel; with
 // a seed its base is g_base.  A masked-off ray writes its start values.
+// `counts` and `visits` may be null.
 __global__ void __launch_bounds__(kThreads)
 closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const unsigned char* __restrict__ mask,
@@ -75,7 +80,9 @@ closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const int* __restrict__ keys,
                     const float* __restrict__ tri, int n, int ranks,
                     int c_size, int T, int g_base,
-                    int* __restrict__ key_out, int* __restrict__ base_out) {
+                    const int* __restrict__ counts,
+                    int* __restrict__ key_out, int* __restrict__ base_out,
+                    int* __restrict__ visits) {
   __shared__ float4 s_ray[3 * kThreads];
   const int lane = threadIdx.x & 31;
   const float4* rays = s_ray + 3 * (threadIdx.x - lane);  // this warp's
@@ -89,6 +96,7 @@ closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (live) ray = load_ray(o, d, r);
   store_ray(s_ray, ray, kBigT);
   int k = 0;  // the lane's next rank
+  int nvis = 0;
   while (true) {
     // the lane's next candidate that can still give a smaller key: a hit
     // inside the box has t >= entry >= chopped entry, so a candidate whose
@@ -104,12 +112,14 @@ closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
     __syncwarp();
     unsigned pending = __ballot_sync(kFull, req >= 0);
     if (!pending) break;
+    nvis += req >= 0;
     while (pending) {
       int c = __shfl_sync(kFull, req, __ffs(pending) - 1);
       unsigned group = __ballot_sync(kFull, req == c);
       pending &= ~group;
       int cbase = c * c_size;
-      int vkey = serve_closest(tri, T, cbase, c_size, group, rays, lane);
+      int count = counts ? __ldg(counts + c) : c_size;
+      int vkey = serve_closest(tri, T, cbase, count, group, rays, lane);
       if (req == c && vkey < key) {
         key = vkey;
         base = cbase;
@@ -119,6 +129,7 @@ closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (inside) {
     key_out[r] = key;
     base_out[r] = base;
+    if (visits) visits[r] = nvis;
   }
 }
 
@@ -127,19 +138,22 @@ closest_rank_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" {
 
 // Plain C entry point for ctypes.  `keys` is (ranks, n) int32, `seed` (n,)
-// int32 or null.  Launches on the given stream, allocates nothing, and
-// returns the launch's cudaGetLastError().  Cluster ids are not checked
+// int32 or null; `counts` (i32 per cluster slot) and `visits` (i32 per ray,
+// written) may be null.  Launches on the given stream, allocates nothing,
+// and returns the launch's cudaGetLastError().  Cluster ids are not checked
 // against T here: the wrapper checks the tables.
 int launch_closest_rank(const void* o, const void* d, const void* mask,
                         const void* seed, const void* keys, const void* tri,
                         int n, int ranks, int c_size, int T, int g_base,
-                        void* key_out, void* base_out, void* stream) {
+                        const void* counts, void* key_out, void* base_out,
+                        void* visits, void* stream) {
   if (ranks < 1 || c_size < 1) return (int)cudaErrorInvalidValue;
   int blocks = (n + kThreads - 1) / kThreads;
   closest_rank_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)o, (const float*)d, (const unsigned char*)mask,
       (const int*)seed, (const int*)keys, (const float*)tri, n, ranks,
-      c_size, T, g_base, (int*)key_out, (int*)base_out);
+      c_size, T, g_base, (const int*)counts, (int*)key_out, (int*)base_out,
+      (int*)visits);
   return (int)cudaGetLastError();
 }
 

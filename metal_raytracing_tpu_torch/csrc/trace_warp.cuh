@@ -58,6 +58,35 @@ __device__ __forceinline__ int coop_pick(const float* boxes, int count,
   return mn == kInfBits ? -1 : idx;
 }
 
+// coop_pick for a box list of any length, with the order state of a wide
+// super (trace_hier.cu) in place of a visited mask: only a box whose
+// (entry bits, index) comes strictly after (a_bits, a_idx) may be picked.
+// Lane l tests boxes l, l + 32, ...  Returns the same index to all lanes,
+// and the picked entry's bits in *bits_out.  Called by all 32 lanes.
+__device__ __forceinline__ int coop_pick_after(const float* boxes, int count,
+                                               const float4* rays, int m,
+                                               float t_max, float bound,
+                                               int a_bits, int a_idx,
+                                               int lane, int* bits_out) {
+  float4 a = rays[3 * m], b = rays[3 * m + 1], iv = rays[3 * m + 2];
+  Ray ray = {a.x, a.y, a.z, a.w, b.x, b.y, iv.x, iv.y, iv.z};
+  int best_bits = kInfBits, best_idx = 0x7fffffff;
+  for (int k = lane; k < count; k += 32) {
+    float tn = 0.0f;
+    bool ok = slab(boxes + 6 * k, ray, t_max, &tn) && tn < bound;
+    int bits = __float_as_int(tn + 0.0f);
+    ok = ok && (bits > a_bits || (bits == a_bits && k > a_idx));
+    if (ok && bits < best_bits) {
+      best_bits = bits;
+      best_idx = k;
+    }
+  }
+  int mn = __reduce_min_sync(kFull, best_bits);
+  int idx = __reduce_min_sync(kFull, best_bits == mn ? best_idx : 0x7fffffff);
+  *bits_out = mn;
+  return mn == kInfBits ? -1 : idx;
+}
+
 // The warp's shared leaf test for closest hits: slots [base, base + count)
 // against the ray of every lane in `group`.  Returns, to each lane of the
 // group, its ray's minimum packed key (bits(t) & ~0x1FF) | j over the

@@ -111,19 +111,18 @@ def load_library() -> ctypes.CDLL:
             _build(path)
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.launch_closest_flat.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            p, p, p]
+        # K1-K4 and K6: `counts` before the outputs, `visits` after them
+        lib.launch_closest_flat.argtypes = [p] * 6 + [i] * 5 + [p] * 5
         lib.launch_closest_flat.restype = i
-        lib.launch_any_flat.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                        p, p]
+        lib.launch_any_flat.argtypes = [p] * 6 + [i] * 6 + [p] * 4
         lib.launch_any_flat.restype = i
-        lib.launch_closest_hier.argtypes = [p] * 8 + [i] * 6 + [p] * 3
+        lib.launch_closest_hier.argtypes = [p] * 8 + [i] * 6 + [p] * 5
         lib.launch_closest_hier.restype = i
-        lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 2
+        lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 4
         lib.launch_any_hier.restype = i
         lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]
         lib.launch_broadphase.restype = i
-        lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 3
+        lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 5
         lib.launch_closest_rank.restype = i
         lib.launch_closest_bvh.argtypes = [p] * 8 + [i] * 7 + [p] * 5
         lib.launch_closest_bvh.restype = i

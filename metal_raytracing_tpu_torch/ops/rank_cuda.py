@@ -37,7 +37,8 @@ from ..accel import BVHSpec
 from .broadphase_cuda import NC_IDM, NC_SENT
 from .trace_cuda import (IDX_BITS, IDX_MASK, N_TRI_PLANES, _INIT_KEY,
                          _REF_GATHER_ELEMS, _check_rays, _check_tables,
-                         _key_to_t, _plane_hits, _ptr, _raise_on, _stream)
+                         _key_to_t, _plane_hits, _ptr, _raise_on, _stream,
+                         active_counts)
 
 __all__ = ["trace_closest_rank", "closest_rank_ref", "closest_rank_walk_ref",
            "rank_certificate"]
@@ -59,12 +60,25 @@ def _start(n, spec: BVHSpec, seed_key, device):
                        device=device))
 
 
+def _serve(o, d, r, cid, tri, c, lane, counts):
+    """(cluster bases, minimum packed keys) of rays ``r`` against their
+    clusters ``cid``: every slot of each, or its first ``counts``."""
+    cbase = (cid * c).to(torch.int32)
+    t, hit = _plane_hits(o[r], d[r],
+                         tri[:, (cbase[:, None] + lane[None, :]).long()])
+    if counts is not None:
+        hit = hit & (lane[None, :] < counts[cid.long()][:, None])
+    vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
+    return cbase, torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
+
+
 def closest_rank_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
-                     seed_key=None):
+                     seed_key=None, counts=None):
     """Plain version of ``closest_rank_kernel``: rank by rank, the rays
     whose candidate survives the cull gather its ``cluster_size`` plane
-    columns and take the minimum packed key, with the kernels' plane test.
-    Returns ``(key (N,) i32, base (N,) i32)``."""
+    columns (with ``counts``, its first ``counts[c]``) and take the minimum
+    packed key, with the kernels' plane test.  Returns ``(key (N,) i32,
+    base (N,) i32)``."""
     n = o.shape[0]
     c = spec.cluster_size
     key, base = _start(n, spec, seed_key, o.device)
@@ -75,11 +89,8 @@ def closest_rank_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
         rays = go.nonzero()[:, 0]
         for s in range(0, rays.shape[0], step):
             r = rays[s:s + step]
-            cbase = (pk[r] & NC_IDM) * c
-            cols = (cbase[:, None] + lane[None, :]).long()
-            t, hit = _plane_hits(o[r], d[r], tri[:, cols])
-            vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
-            vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
+            cbase, vkey = _serve(o, d, r, pk[r] & NC_IDM, tri, c, lane,
+                                 counts)
             take = vkey < key[r]
             key[r] = torch.where(take, vkey, key[r])
             base[r] = torch.where(take, cbase, base[r])
@@ -87,21 +98,22 @@ def closest_rank_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
 
 
 def closest_rank_walk_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
-                          seed_key=None, rounds=None):
+                          seed_key=None, rounds=None, counts=None):
     """Plain version of ``closest_rank_kernel`` that walks as its warps do.
     In each round every live ray takes its next candidate that survives
     the cull (not the sentinel, chopped entry below its chopped best), the
     rays of each 32-ray group in ray order (a warp) that asked for the same
     cluster form one group, and each requesting ray takes that cluster's
     minimum packed key when strictly smaller; a ray stops when its ranks
-    run out.  Key and base equal :func:`closest_rank_ref`'s bit for bit.
+    run out.  Key and base equal :func:`closest_rank_ref`'s bit for bit;
+    ``counts`` as there.
 
     ``rounds``: a list that receives each round's (N,) requested cluster
     id per ray (-1: none).  Returns ``(key (N,) i32, base (N,) i32, visits
     (N,) i32, sizes (G,) i64)``: ``visits`` the clusters each ray
     dense-tested, ``sizes`` the lanes of each group a warp served, over all
-    rounds.  Test and measurement code: the CPU path of
-    :func:`trace_closest_rank` stays :func:`closest_rank_ref`."""
+    rounds.  The CPU path of :func:`trace_closest_rank` with
+    ``count_visits``; without, it stays :func:`closest_rank_ref`."""
     n, c, dev = o.shape[0], spec.cluster_size, o.device
     key, base = _start(n, spec, seed_key, dev)
     visits = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -126,11 +138,7 @@ def closest_rank_walk_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
         sizes.append(torch.unique(groups, return_counts=True)[1])
         for s in range(0, rays.shape[0], step):
             r = rays[s:s + step]
-            cbase = (req[r] * c).to(torch.int32)
-            cols = (cbase[:, None] + lane[None, :]).long()
-            t, hit = _plane_hits(o[r], d[r], tri[:, cols])
-            vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
-            vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
+            cbase, vkey = _serve(o, d, r, req[r], tri, c, lane, counts)
             take = vkey < key[r]
             key[r] = torch.where(take, vkey, key[r])
             base[r] = torch.where(take, cbase, base[r])
@@ -141,7 +149,7 @@ def closest_rank_walk_ref(o, d, mask, rank_keys, tri, spec: BVHSpec,
 
 
 def trace_closest_rank(o, d, mask, rank_keys, tri, spec: BVHSpec,
-                       seed_key=None):
+                       seed_key=None, count_visits=False, counts=None):
     """Rank-directed closest walk over each ray's candidate clusters:
     ``closest_rank_kernel`` on a CUDA device, :func:`closest_rank_ref` on
     the CPU (``trace_pallas.trace_closest_rank``).
@@ -149,9 +157,12 @@ def trace_closest_rank(o, d, mask, rank_keys, tri, spec: BVHSpec,
     ``rank_keys``: K >= 1 (N,) int32 packed candidate keys, ranks 1..K.
     ``seed_key``: the (N,) int32 host seed of ``global_seed_keys``; a scene
     with a global set needs it, for the walk has no global test of its own.
+    ``counts`` and ``count_visits``: the kernel's options, as
+    ``trace_cuda.trace_closest`` takes them.
     Returns ``(key, base)``: the packed best key and the slot base it counts
     from; decode with ``found = key < MISS``, ``t = key_to_t(key)``,
-    ``tri = base + (key & IDX_MASK)``."""
+    ``tri = base + (key & IDX_MASK)``; with ``count_visits`` ``(key, base,
+    visits (N,) int32)``."""
     rank_keys = list(rank_keys)
     if not rank_keys:
         raise ValueError("the rank walk needs at least one candidate key")
@@ -167,8 +178,13 @@ def trace_closest_rank(o, d, mask, rank_keys, tri, spec: BVHSpec,
         named.append(("seed_key", seed_key))
     _check_rays(o, d, mask, tuple((name, x, (n,), torch.int32)
                                   for name, x in named))
+    counts = active_counts(spec, counts)
     if o.device.type == "cpu":
-        return closest_rank_ref(o, d, mask, rank_keys, tri, spec, seed_key)
+        if count_visits:
+            return closest_rank_walk_ref(o, d, mask, rank_keys, tri, spec,
+                                         seed_key, counts=counts)[:3]
+        return closest_rank_ref(o, d, mask, rank_keys, tri, spec, seed_key,
+                                counts)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     _check_tables(o.device, tri=tri)
@@ -177,22 +193,30 @@ def trace_closest_rank(o, d, mask, rank_keys, tri, spec: BVHSpec,
         raise ValueError(f"bad plane table: tri {tuple(tri.shape)}")
     from ._build import load_library
 
+    if counts is not None and (counts.dtype != torch.int32
+                               or counts.device != o.device
+                               or counts.shape[0] < spec.num_clusters):
+        raise ValueError(f"counts must be int32 (>= {spec.num_clusters},) "
+                         f"on {o.device}")
     lib = load_library()
     key = torch.empty((n,), dtype=torch.int32, device=o.device)
     base = torch.empty((n,), dtype=torch.int32, device=o.device)
+    visits = (torch.zeros((n,), dtype=torch.int32, device=o.device)
+              if count_visits else None)
     if n:
         o_c, d_c, m_c = o.contiguous(), d.contiguous(), mask.contiguous()
         s_c = None if seed_key is None else seed_key.contiguous()
         keys_c = torch.stack(rank_keys)  # (K, N), rank 1 first
         tri_c = tri.contiguous()
-        err = lib.launch_closest_rank(
-            _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(keys_c),
-            _ptr(tri_c), n, len(rank_keys), spec.cluster_size,
-            tri_c.shape[1], spec.global_base, _ptr(key), _ptr(base),
-            _stream(o.device))
+        args = (_ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(keys_c),
+                _ptr(tri_c), n, len(rank_keys), spec.cluster_size,
+                tri_c.shape[1], spec.global_base)
+        err = lib.launch_closest_rank(*args, _ptr(counts), _ptr(key),
+                                      _ptr(base), _ptr(visits),
+                                      _stream(o.device))
         _raise_on(err, lib, "closest_rank_kernel")
         trace_closest_rank.launches += 1
-    return key, base
+    return (key, base, visits) if count_visits else (key, base)
 
 
 trace_closest_rank.launches = 0

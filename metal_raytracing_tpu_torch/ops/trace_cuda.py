@@ -27,6 +27,20 @@ keeps plain integer launch counts that grow by one per kernel launch:
 ``trace_closest.launches`` and ``trace_any.launches`` (flat),
 ``trace_closest.launches_hier`` and ``trace_any.launches_hier``.
 
+**Options of the TPU kernels.**  ``counts`` (``SceneData.clu_counts``, the
+real triangles of each cluster slot, used only where the build marks
+``partial_clusters``, as in ``trace_pallas``) ends each cluster's leaf test
+at its last real slot; padding slots are zero planes that never hit, so the
+result is the same.  ``count_visits`` also returns each ray's cluster
+visits, (N,) int32: the clusters it dense-tested (the any-hit kernels'
+global test is not a visit).  The TPU kernels count per 128-ray tile; these
+walk a ray per lane and count per ray, as the walking plain versions do,
+which are what the wrappers run on the CPU when visits are asked for.  The
+hierarchical kernels take supers of up to ``MAX_PER_SUPER`` clusters
+(builders that make many small clusters: dragon's ``ploc`` build gives 232
+a super); above ``SHARED_PER_SUPER`` they read the cluster boxes from device
+memory in place of shared memory (``csrc/trace_hier.cu``).
+
 **Outputs follow the TPU kernels' contract.**  A closest hit is the minimum
 over packed keys ``(bits(t) & ~IDX_MASK) | in-cluster index``: positive
 float bits order like their values, so the minimum is the nearest hit with t
@@ -52,12 +66,16 @@ from .intersect import BIG_T, Hit
 __all__ = ["pack_triangle_planes", "pack_scene_planes", "super_layout",
            "trace_closest", "trace_any", "closest_flat_ref", "any_flat_ref",
            "closest_hier_ref", "any_hier_ref", "closest_flat_walk_ref",
-           "any_flat_walk_ref",
+           "any_flat_walk_ref", "closest_walk_ref", "any_walk_ref",
+           "active_counts",
            "global_seed_keys", "global_any_hit", "recompute_tuv",
            "reset_launch_counts", "IDX_BITS", "IDX_MASK"]
 
 NSP = 128  # maximum super count (the level-0 fan-out bound)
-MAX_PER_SUPER = 32  # clusters per super the hierarchical kernels take
+# Clusters per super the hierarchical kernels take, and up to which they
+# keep the cluster boxes in shared memory.
+MAX_PER_SUPER = 4096
+SHARED_PER_SUPER = 32
 # Largest padded cluster count the flat kernels take (trace_pallas.py:2043).
 FLAT_MAX_CLUSTERS = 128
 N_TRI_PLANES = 12
@@ -376,11 +394,15 @@ def _next_requests(o, d, t_max, bound, sup, clu, cur, svis, cvis):
     return req
 
 
-def _cluster_hits(o, d, tri, cbase, c: int):
+def _cluster_hits(o, d, tri, cbase, c: int, n_real=None):
     """(t, hit) (n, c) of each ray against the ``c`` slots of its own
-    cluster, from slot ``cbase`` (n,) on."""
+    cluster, from slot ``cbase`` (n,) on; with ``n_real`` (n,) only the
+    first ``n_real`` slots of each (the ``counts`` option)."""
     lane = torch.arange(c, device=o.device)
-    return _plane_hits(o, d, tri[:, cbase[:, None].long() + lane[None, :]])
+    t, hit = _plane_hits(o, d, tri[:, cbase[:, None].long() + lane[None, :]])
+    if n_real is not None:
+        hit = hit & (lane[None, :] < n_real[:, None])
+    return t, hit
 
 
 def _walk_state(mask, sup, clu):
@@ -403,10 +425,10 @@ def _note_round(rounds, n, rays, req) -> None:
 
 
 def _walk_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key,
-                  seed_base, rounds):
+                  seed_base, rounds, counts=None):
     """The closest walk of :func:`closest_hier_ref` (``sup`` the real
     supers, ``clu`` (NS, S, 6)) or :func:`closest_flat_walk_ref` (``sup``
-    None, ``clu`` (NCP, 6))."""
+    None, ``clu`` (NCP, 6)); ``counts`` (NCP,) as the kernels take it."""
     n, c, dev = o.shape[0], spec.cluster_size, o.device
     key = (torch.full((n,), _INIT_KEY, dtype=torch.int32, device=dev)
            if seed_key is None else seed_key.to(torch.int32).clone())
@@ -428,7 +450,9 @@ def _walk_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key,
         for s in range(0, rays.shape[0], step):
             r = rays[s:s + step]
             cbase = (req[s:s + step] * c).to(torch.int32)
-            t, hit = _cluster_hits(o[r], d[r], tri, cbase, c)
+            t, hit = _cluster_hits(o[r], d[r], tri, cbase, c,
+                                   None if counts is None
+                                   else counts[req[s:s + step]])
             vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
             vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
             take = vkey < key[r]
@@ -442,10 +466,11 @@ def _walk_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key,
 
 
 def _walk_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, g_slots: int,
-              rounds):
+              rounds, counts=None):
     """The occlusion walk of :func:`any_hier_ref` or
-    :func:`any_flat_walk_ref` (``sup``, ``clu`` as :func:`_walk_closest`),
-    after the global test over ``g_slots`` slots from ``global_base``."""
+    :func:`any_flat_walk_ref` (``sup``, ``clu``, ``counts`` as
+    :func:`_walk_closest`), after the global test over ``g_slots`` slots
+    from ``global_base``."""
     n, c, dev = o.shape[0], spec.cluster_size, o.device
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
     visits = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -469,7 +494,9 @@ def _walk_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, g_slots: int,
         _note_round(rounds, n, rays, req)
         for s in range(0, rays.shape[0], step):
             r = rays[s:s + step]
-            t, hit = _cluster_hits(o[r], d[r], tri, req[s:s + step] * c, c)
+            t, hit = _cluster_hits(o[r], d[r], tri, req[s:s + step] * c, c,
+                                   None if counts is None
+                                   else counts[req[s:s + step]])
             occ[r] = (hit & (t <= max_t[r, None])).any(dim=1)
         visits[rays] += 1
         go = ~occ[rays]
@@ -478,7 +505,7 @@ def _walk_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, g_slots: int,
 
 
 def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                     seed_base=None, rounds=None):
+                     seed_base=None, rounds=None, counts=None):
     """Plain version of ``closest_hier_kernel`` that walks as the kernel
     does, every ray at once: in each round every walking ray takes the
     nearest unvisited super and cluster whose slab entry lies strictly below
@@ -491,54 +518,79 @@ def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
     ``sup`` (>= NS, 6), ``clu`` (NS, S, 6), ``tri`` (12, T) as
     :func:`trace_closest` takes them; ``seed_key`` / ``seed_base`` as there.
     ``rounds``: a list that receives each round's (N,) requested cluster id
-    per ray (-1: none), the schedule a warp of the kernel serves.  Returns
-    ``(t_chop (N,) f32, tri (N,) i32, visits (N,) i32)``, ``visits`` the
-    clusters each ray dense-tested.  Test and measurement code: the CPU
-    path of :func:`trace_closest` stays :func:`closest_flat_ref`."""
+    per ray (-1: none), the schedule a warp of the kernel serves.
+    ``counts`` (NCP,) i32: test only each cluster's first ``counts`` slots
+    (the kernels' option; the result is the same).  Returns ``(t_chop (N,)
+    f32, tri (N,) i32, visits (N,) i32)``, ``visits`` the clusters each ray
+    dense-tested.  The CPU path of :func:`trace_closest` with
+    ``count_visits``; without, it stays :func:`closest_flat_ref`."""
     return _walk_closest(o, d, mask, sup[:clu.shape[0]], clu, tri, spec,
-                         seed_key, seed_base, rounds)
+                         seed_key, seed_base, rounds, counts)
 
 
 def any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
-                 rounds=None):
+                 rounds=None, counts=None):
     """Plain version of ``any_hier_kernel`` that walks as the kernel does:
     every live ray tests the ``padded_global`` global slots first, then the
     unoccluded ones walk supers and clusters in entry order under the
     ``max_t`` slab bound (:func:`_next_requests`), each leaving at its
-    first occluder.  ``rounds`` as :func:`closest_hier_ref` (the global
-    test is not a round).  Returns ``(occluded (N,) bool, visits (N,)
-    i32)``, ``visits`` the clusters each ray dense-tested.  Test and
-    measurement code: the CPU path of :func:`trace_any` stays
+    first occluder.  ``rounds`` and ``counts`` as :func:`closest_hier_ref`
+    (the global test is not a round).  Returns ``(occluded (N,) bool,
+    visits (N,) i32)``, ``visits`` the clusters each ray dense-tested.  The
+    CPU path of :func:`trace_any` with ``count_visits``; without, it stays
     :func:`any_flat_ref`."""
     return _walk_any(o, d, max_t, mask, sup[:clu.shape[0]], clu, tri, spec,
-                     spec.padded_global, rounds)
+                     spec.padded_global, rounds, counts)
 
 
 def closest_flat_walk_ref(o, d, mask, clu, tri, spec: BVHSpec, seed_key=None,
-                          rounds=None):
+                          rounds=None, counts=None):
     """Plain version of ``closest_flat_kernel`` that walks as the kernel
     does: :func:`closest_hier_ref`'s rounds on a walk of one level, each
     walking ray taking the nearest unvisited box of all ``clu`` (NS, S, 6)
     cluster boxes whose slab entry lies strictly below its chopped best.
-    ``seed_key`` and ``rounds`` as there (the seed's base is
-    ``global_base``).  Returns ``(t_chop, tri, visits)``.  Test and
-    measurement code: the CPU path of :func:`trace_closest` stays
-    :func:`closest_flat_ref`."""
+    ``seed_key``, ``rounds`` and ``counts`` as there (the seed's base is
+    ``global_base``).  Returns ``(t_chop, tri, visits)``."""
     return _walk_closest(o, d, mask, None, clu.reshape(-1, 6), tri, spec,
-                         seed_key, None, rounds)
+                         seed_key, None, rounds, counts)
 
 
 def any_flat_walk_ref(o, d, max_t, mask, clu, tri, spec: BVHSpec,
-                      rounds=None):
+                      rounds=None, counts=None):
     """Plain version of ``any_flat_kernel`` that walks as the kernel does:
     every live ray tests the ``num_global`` real global slots first, then
     the unoccluded ones walk all ``clu`` (NS, S, 6) cluster boxes in entry
     order under the ``max_t`` slab bound, each leaving at its first
-    occluder.  ``rounds`` as :func:`closest_hier_ref`.  Returns
-    ``(occluded, visits)``.  Test and measurement code: the CPU path of
-    :func:`trace_any` stays :func:`any_flat_ref`."""
+    occluder.  ``rounds`` and ``counts`` as :func:`closest_hier_ref`.
+    Returns ``(occluded, visits)``."""
     return _walk_any(o, d, max_t, mask, None, clu.reshape(-1, 6), tri, spec,
-                     spec.num_global, rounds)
+                     spec.num_global, rounds, counts)
+
+
+def closest_walk_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
+                     seed_base=None, flat=None, rounds=None, counts=None):
+    """The walking plain version of the closest kernel the route picks
+    (``flat`` as :func:`trace_closest`): :func:`closest_flat_walk_ref` or
+    :func:`closest_hier_ref`.  Returns ``(t_chop, tri, visits)``."""
+    if _use_flat(spec, flat):
+        if seed_base is not None:
+            raise ValueError("seed_base requires the hierarchical walk")
+        return closest_flat_walk_ref(o, d, mask, clu, tri, spec, seed_key,
+                                     rounds, counts)
+    return closest_hier_ref(o, d, mask, sup, clu, tri, spec, seed_key,
+                            seed_base, rounds, counts)
+
+
+def any_walk_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
+                 rounds=None, counts=None):
+    """The walking plain version of the any-hit kernel the route picks:
+    :func:`any_flat_walk_ref` or :func:`any_hier_ref`.  Returns
+    ``(occluded, visits)``."""
+    if _use_flat(spec, flat):
+        return any_flat_walk_ref(o, d, max_t, mask, clu, tri, spec, rounds,
+                                 counts)
+    return any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec, rounds,
+                        counts)
 
 
 # ---------------------------------------------------------------------------
@@ -589,11 +641,28 @@ def _kernel_tables(spec: BVHSpec, sup, clu, tri, flat=None):
     ns, s_per = clu.shape[0], clu.shape[1]
     if hier and (ns > NSP or s_per > MAX_PER_SUPER):
         raise ValueError(f"the hierarchical kernels take <= {NSP} supers of "
-                         f"<= {MAX_PER_SUPER} clusters, got {ns} x {s_per}")
+                         f"<= {MAX_PER_SUPER} clusters, got {ns} x "
+                         f"{s_per}")
     if not hier and ns * s_per > FLAT_MAX_CLUSTERS:
         raise ValueError(f"the flat kernels take <= {FLAT_MAX_CLUSTERS} "
                          f"clusters, got {ns * s_per}")
     return (hier, sup[:ns].contiguous(), clu.contiguous(), tri.contiguous())
+
+
+def active_counts(spec: BVHSpec, counts):
+    """``counts`` where the kernels use it: only on builds that mark
+    ``partial_clusters``, as ``trace_pallas`` decides; else None."""
+    return counts if counts is not None and spec.partial_clusters else None
+
+
+def _check_counts(counts, clu, device) -> None:
+    ncp = clu.shape[0] * clu.shape[1]
+    if counts is not None and (
+            counts.dtype != torch.int32 or counts.device != device
+            or counts.dim() != 1 or counts.shape[0] < ncp):
+        raise ValueError(f"counts must be int32 (>= {ncp},) on {device}, got "
+                         f"{counts.dtype} {tuple(counts.shape)} on "
+                         f"{counts.device}")
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -607,7 +676,7 @@ def _stream(device) -> ctypes.c_void_p:
 
 
 def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                  flat=None, seed_base=None) -> Hit:
+                  flat=None, seed_base=None, count_visits=False, counts=None):
     """Closest hit of each ray: ``closest_flat_kernel`` or
     ``closest_hier_kernel`` on a CUDA device (``flat`` as
     ``trace_pallas.trace_closest``: None picks by cluster count),
@@ -619,9 +688,11 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
     set and none is given).  ``seed_base`` (N,) int32 gives each ray the
     slot base of its seed key in place of ``global_base`` (the rank-directed
     walk's best as the seed); it needs ``seed_key`` and the hierarchical
-    kernel, as in the reference.  Returns a :class:`Hit` whose ``t`` is the
-    chopped distance of the packed key (``u``/``v`` are zeros): the renderer
-    recomputes the exact t from the shade row."""
+    kernel, as in the reference.  ``counts`` and ``count_visits``: the
+    kernels' options (module docstring).  Returns a :class:`Hit` whose
+    ``t`` is the chopped distance of the packed key (``u``/``v`` are zeros:
+    the renderer recomputes the exact t from the shade row), with
+    ``count_visits`` ``(Hit, visits (N,) int32)``."""
     if seed_base is not None:
         if seed_key is None:
             raise ValueError("seed_base needs the seed_key it belongs to")
@@ -635,52 +706,66 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
                   for name, x in (("seed_key", seed_key),
                                   ("seed_base", seed_base)) if x is not None)
     _check_rays(o, d, mask, extra)
+    counts = active_counts(spec, counts)
+    visits = None
     if o.device.type == "cpu":
-        t, tri_id = closest_flat_ref(o, d, mask, tri, spec, seed_key,
-                                     seed_base)
+        if count_visits:
+            t, tri_id, visits = closest_walk_ref(
+                o, d, mask, sup, clu, tri, spec, seed_key, seed_base, flat,
+                counts=counts)
+        else:
+            t, tri_id = closest_flat_ref(o, d, mask, tri, spec, seed_key,
+                                         seed_base)
     elif o.device.type == "cuda":
         from ._build import load_library
 
         _check_tables(o.device, tri=tri)
         hier, sup_c, clu_c, tri_c = _kernel_tables(spec, sup, clu, tri, flat)
+        _check_counts(counts, clu_c, o.device)
         lib = load_library()
         o_c, d_c, m_c = o.contiguous(), d.contiguous(), mask.contiguous()
         s_c = None if seed_key is None else seed_key.contiguous()
         sb_c = None if seed_base is None else seed_base.contiguous()
         t = torch.empty((n,), dtype=torch.float32, device=o.device)
         tri_id = torch.empty((n,), dtype=torch.int32, device=o.device)
+        if count_visits:
+            visits = torch.zeros((n,), dtype=torch.int32, device=o.device)
         if n and hier:
             err = lib.launch_closest_hier(
                 _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sb_c),
                 _ptr(sup_c), _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0],
                 clu_c.shape[1], spec.cluster_size, tri_c.shape[1],
-                spec.global_base, _ptr(t), _ptr(tri_id), _stream(o.device))
+                spec.global_base, _ptr(counts), _ptr(t), _ptr(tri_id),
+                _ptr(visits), _stream(o.device))
             _raise_on(err, lib, "closest_hier_kernel")
             trace_closest.launches_hier += 1
         elif n:
             err = lib.launch_closest_flat(
                 _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(clu_c),
                 _ptr(tri_c), n, clu_c.shape[0] * clu_c.shape[1],
-                spec.cluster_size, tri_c.shape[1], spec.global_base, _ptr(t),
-                _ptr(tri_id), _stream(o.device))
+                spec.cluster_size, tri_c.shape[1], spec.global_base,
+                _ptr(counts), _ptr(t), _ptr(tri_id), _ptr(visits),
+                _stream(o.device))
             _raise_on(err, lib, "closest_flat_kernel")
             trace_closest.launches += 1
     else:
         raise ValueError(f"unsupported device {o.device}")
     z = torch.zeros_like(t)
-    return Hit(t=t, u=z, v=z, tri=tri_id)
+    hit = Hit(t=t, u=z, v=z, tri=tri_id)
+    return (hit, visits) if count_visits else hit
 
 
 trace_closest.launches = 0
 trace_closest.launches_hier = 0
 
 
-def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
-              flat=None) -> torch.Tensor:
+def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
+              count_visits=False, counts=None):
     """Occlusion of each ray segment ``(1e-6, max_t]``: ``any_flat_kernel``
     or ``any_hier_kernel`` on a CUDA device (``flat`` as
     :func:`trace_closest`), :func:`any_flat_ref` on the CPU.  Returns (N,)
-    bool.
+    bool, with ``count_visits`` ``(occluded, visits (N,) int32)``;
+    ``counts`` as :func:`trace_closest`.
 
     Like the TPU kernels with ``seed_global=False``, both kernels still
     test the global slots before their cluster walk: ``any_flat_kernel``
@@ -690,7 +775,11 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
     as one group of every live lane."""
     n = o.shape[0]
     _check_rays(o, d, mask, (("max_t", max_t, (n,), torch.float32),))
+    counts = active_counts(spec, counts)
     if o.device.type == "cpu":
+        if count_visits:
+            return any_walk_ref(o, d, max_t, mask, sup, clu, tri, spec, flat,
+                                counts=counts)
         return any_flat_ref(o, d, max_t, mask, tri, spec)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
@@ -698,16 +787,20 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
 
     _check_tables(o.device, tri=tri)
     hier, sup_c, clu_c, tri_c = _kernel_tables(spec, sup, clu, tri, flat)
+    _check_counts(counts, clu_c, o.device)
     lib = load_library()
     o_c, d_c = o.contiguous(), d.contiguous()
     mt_c, m_c = max_t.contiguous(), mask.contiguous()
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    visits = (torch.zeros((n,), dtype=torch.int32, device=o.device)
+              if count_visits else None)
     if n and hier:
         err = lib.launch_any_hier(
             _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(sup_c),
             _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0], clu_c.shape[1],
             spec.cluster_size, tri_c.shape[1], spec.global_base,
-            spec.padded_global, _ptr(occ), _stream(o.device))
+            spec.padded_global, _ptr(counts), _ptr(occ), _ptr(visits),
+            _stream(o.device))
         _raise_on(err, lib, "any_hier_kernel")
         trace_any.launches_hier += 1
     elif n:
@@ -715,10 +808,11 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
             _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(clu_c),
             _ptr(tri_c), n, clu_c.shape[0] * clu_c.shape[1],
             spec.cluster_size, tri_c.shape[1], spec.global_base,
-            spec.num_global, _ptr(occ), _stream(o.device))
+            spec.num_global, _ptr(counts), _ptr(occ), _ptr(visits),
+            _stream(o.device))
         _raise_on(err, lib, "any_flat_kernel")
         trace_any.launches += 1
-    return occ
+    return (occ, visits) if count_visits else occ
 
 
 trace_any.launches = 0

@@ -36,6 +36,7 @@ and the light-major shadow key in place of the cluster keys.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
 from typing import Dict, Optional, Tuple
@@ -53,6 +54,7 @@ from .ops.broadphase_cuda import (BROADPHASE_MAX_CLUSTERS, NC_IDM,
 from .ops.intersect import Hit
 from .scene import Scene, SceneData, SceneSpec
 from .types import RenderConfig
+from .utils.profiling import named_scope
 
 __all__ = ["render_sample", "render_rays", "pixel_coords", "accumulate",
            "Renderer", "make_pixel_offsets", "make_tracers",
@@ -140,13 +142,18 @@ def resolve_tracer(cfg: RenderConfig, device) -> str:
 
 
 def make_tracers(data: SceneData, spec: SceneSpec, tracer: str,
-                 block: int = 128):
+                 block: int = 128, count_visits: bool = False, counts=None):
     """(closest(o, d, mask, seed, seed_base=None) -> Hit, any_hit(o, d,
     max_t, mask) -> bool): over the scene's packed planes, the kernel
     wrappers for ``tracer="cuda"`` and their plain versions for
     ``"torch"``; over its geometry and node boxes, the exact tracers of
     ``ops.trace`` for ``"bvh"`` (packets of ``block`` rays on the CPU) and
-    ``"bruteforce"``, which take no seed."""
+    ``"bruteforce"``, which take no seed.
+
+    For the cluster tracers, ``counts`` (``SceneData.clu_counts``) turns
+    on the kernels' chunk skip, and ``count_visits`` makes each return
+    ``(result, visits)``, the clusters each ray dense-tested (the plain
+    versions that walk, for ``"torch"``); the exact tracers ignore both."""
     if tracer in EXACT_TRACERS:
         g, lo, hi, bvh = data.geometry, data.node_lo, data.node_hi, spec.bvh
 
@@ -163,16 +170,30 @@ def make_tracers(data: SceneData, spec: SceneSpec, tracer: str,
             def any_hit(o, d, mt, m):
                 return trace.trace_any_bruteforce(o, d, mt, m, g)
     elif tracer == "cuda":
+        tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+
         def closest(o, d, m, seed, seed_base=None):
-            return trace_cuda.trace_closest(o, d, m, data.sup_planes,
-                                            data.clu_planes, data.tri_planes,
-                                            spec.bvh, seed,
-                                            seed_base=seed_base)
+            return trace_cuda.trace_closest(o, d, m, *tabs, seed,
+                                            seed_base=seed_base,
+                                            count_visits=count_visits,
+                                            counts=counts)
 
         def any_hit(o, d, mt, m):
-            return trace_cuda.trace_any(o, d, mt, m, data.sup_planes,
-                                        data.clu_planes, data.tri_planes,
-                                        spec.bvh)
+            return trace_cuda.trace_any(o, d, mt, m, *tabs,
+                                        count_visits=count_visits,
+                                        counts=counts)
+    elif count_visits:
+        tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+        counts = trace_cuda.active_counts(spec.bvh, counts)
+
+        def closest(o, d, m, seed, seed_base=None):
+            t, tri, visits = trace_cuda.closest_walk_ref(
+                o, d, m, *tabs, seed, seed_base, counts=counts)
+            z = torch.zeros_like(t)
+            return Hit(t=t, u=z, v=z, tri=tri), visits
+
+        def any_hit(o, d, mt, m):
+            return trace_cuda.any_walk_ref(o, d, mt, m, *tabs, counts=counts)
     else:
         def closest(o, d, m, seed, seed_base=None):
             t, tri = trace_cuda.closest_flat_ref(o, d, m, data.tri_planes,
@@ -190,9 +211,13 @@ def make_closest_rank(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                       tracer: str, closest):
     """``closest_rank(o, d, mask, rank_keys, seed) -> (Hit, unresolved
     count)`` for ``cfg.rank_trace``, or None where the walk is off: on a
-    flat scene, and on a scene with a global set unless the miss fold's
-    global pass gives the walk its seed (``host_seed`` and
-    ``cluster_miss_fold``), as in the reference.
+    flat scene, on a scene with more padded clusters than the sort keys
+    hold, and on a scene with a global set unless the miss fold's global
+    pass gives the walk its seed (``host_seed`` and ``cluster_miss_fold``),
+    as in the reference.  With ``cfg.telemetry`` it returns ``(Hit,
+    unresolved, visits)`` (the walk's visits plus the fallback's) and
+    ``closest`` must return ``(Hit, visits)``; ``cfg.chunk_skip`` hands the
+    walk the cluster counts.
 
     ``rank_keys`` are the K + 1 packed candidate keys of ranks 1..K+1 in
     this call's ray order.  The walk (the kernel for ``tracer="cuda"``, its
@@ -207,27 +232,55 @@ def make_closest_rank(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     PERF.md)."""
     bvh = spec.bvh
     if (not cfg.rank_trace or tracer in EXACT_TRACERS
-            or trace_cuda._use_flat(bvh)
+            or trace_cuda._use_flat(bvh) or not _cluster_keys_fit(data)
             or not (bvh.num_global == 0
                     or (cfg.host_seed and cfg.cluster_miss_fold))):
         return None
-    walk = (rank_cuda.trace_closest_rank if tracer == "cuda"
-            else rank_cuda.closest_rank_ref)
+    tele = cfg.telemetry
+    counts = data.clu_counts if cfg.chunk_skip else None
+
+    def walk(o, d, m, rank_keys, seed):
+        if tracer == "cuda":
+            return rank_cuda.trace_closest_rank(
+                o, d, m, rank_keys, data.tri_planes, bvh, seed,
+                count_visits=tele, counts=counts)
+        counts_on = trace_cuda.active_counts(bvh, counts)
+        if tele:
+            return rank_cuda.closest_rank_walk_ref(
+                o, d, m, rank_keys, data.tri_planes, bvh, seed,
+                counts=counts_on)[:3]
+        return rank_cuda.closest_rank_ref(o, d, m, rank_keys,
+                                          data.tri_planes, bvh, seed,
+                                          counts_on)
 
     def closest_rank(o, d, m, rank_keys, seed):
         k = len(rank_keys) - 1
-        key, base = walk(o, d, m, list(rank_keys[:k]), data.tri_planes, bvh,
-                         seed)
+        res = walk(o, d, m, list(rank_keys[:k]), seed)
+        key, base = res[0], res[1]
         unresolved = m & ~rank_cuda.rank_certificate(key, rank_keys[k])
         fb = closest(o, d, unresolved, key, base)
+        if tele:
+            fb, fb_visits = fb
         found = key < trace_cuda._MISS_KEY
         tri_r = torch.where(found, base + (key & trace_cuda.IDX_MASK), -1)
         t = torch.where(unresolved, fb.t, trace_cuda._key_to_t(key))
         tri = torch.where(unresolved, fb.tri, tri_r)
         z = torch.zeros_like(t)
-        return Hit(t=t, u=z, v=z, tri=tri), unresolved.sum()
+        hit = Hit(t=t, u=z, v=z, tri=tri)
+        if tele:
+            return hit, unresolved.sum(), res[2] + fb_visits
+        return hit, unresolved.sum()
 
     return closest_rank
+
+
+def _cluster_keys_fit(data: SceneData) -> bool:
+    """Do the padded cluster ids fit the 12 bits of the cluster sort keys?
+    Above that the compaction sorts take the ``dir_major`` bounce key and
+    the light-major shadow key, as the reference does (its ``nc_tot <=
+    4095``), and the rank walk, the pair sweep and the miss folds are off."""
+    return data.clu_planes.shape[0] * data.clu_planes.shape[1] \
+        <= _MAX_KEY_CLUSTERS
 
 
 def _fused_keys(tracer: str, cfg: RenderConfig, data: SceneData, bvh,
@@ -318,11 +371,17 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     ``tracers`` overrides the (closest, any_hit) pair of
     :func:`make_tracers`, or with a third entry also the ``closest_rank``
     of :func:`make_closest_rank` (a caller may wrap them to record each
-    pass's rays).  Returns ((N, 3) radiance, stats); ``stats`` counts the
-    traced rays for the Mrays/s metric, ``closest_rays`` and
-    ``shadow_rays``, and where the rank walk ran the rays it left to the
-    fallback, ``rank_unresolved_b<bounce>`` (all 0-d integer tensors, left
-    on the device)."""
+    pass's rays; with ``cfg.telemetry`` they return visits as
+    :func:`make_tracers` says).  Returns ((N, 3) radiance, stats);
+    ``stats`` counts the traced rays for the Mrays/s metric,
+    ``closest_rays`` and ``shadow_rays``, and where the rank walk ran the
+    rays it left to the fallback, ``rank_unresolved_b<bounce>`` (all 0-d
+    integer tensors, left on the device).  With ``cfg.telemetry`` also
+    ``live_b<b>``, ``shadow_b<b>``, ``shadow_occn_b<b>`` and, for the
+    cluster tracers, each ray's cluster visits ``visits_b<b>`` and
+    ``shadow_visits_b<b>`` ((N,) int32 in the pass's ray order); with
+    ``cfg.export_rays`` the strided ray rows ``rays_b<b>`` and
+    ``srays_b<b>`` (``RenderConfig``).  None of it waits for the device."""
     w, h = cfg.width, cfg.height
     n = px.shape[0]
     dev = px.device
@@ -344,34 +403,38 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     exact = tracer in EXACT_TRACERS
     fold_global = cfg.host_seed and bvh.num_global > 0 and not exact
     nc_tot = data.clu_planes.shape[0] * data.clu_planes.shape[1]
-    if cfg.compaction and not exact and nc_tot > _MAX_KEY_CLUSTERS:
-        raise ValueError(
-            f"compaction's cluster sort keys take <= {_MAX_KEY_CLUSTERS} "
-            f"padded clusters, this scene has {nc_tot}; render it with "
-            "compaction=False")
-    fused_keys = (cfg.fused_broadphase and not exact
+    # The exact tracers, and the cluster tracers on a build whose padded
+    # cluster ids do not fit the sort keys' 12 bits, sort by the dir_major
+    # and light-major keys (no cluster keys, miss folds, pair sweep or rank
+    # walk), as the reference does.
+    dir_keys = exact or not _cluster_keys_fit(data)
+    fused_keys = (cfg.fused_broadphase and not dir_keys
                   and nc_tot <= BROADPHASE_MAX_CLUSTERS)
+    tele = cfg.telemetry and not exact  # visits: the cluster tracers only
     shadow_key_from = _from_end(cfg.shadow_hit_key_from, cfg.max_bounces)
     shade_ext = (cfg.enable_specular or cfg.enable_emission
                  or cfg.enable_textures or cfg.enable_refraction)
 
-    px = torch.nn.functional.pad(px, (0, pad))
-    py = torch.nn.functional.pad(py, (0, pad))
-    alive = torch.arange(p, device=dev) < n
-    idx = torch.nn.functional.pad(offsets.to(torch.int32), (0, pad)) \
-        + frame_index
+    with named_scope("raygen"):
+        px = torch.nn.functional.pad(px, (0, pad))
+        py = torch.nn.functional.pad(py, (0, pad))
+        alive = torch.arange(p, device=dev) < n
+        idx = torch.nn.functional.pad(offsets.to(torch.int32), (0, pad)) \
+            + frame_index
 
-    # Camera ray generation (reference: Raytracing.metal:201-218).
-    jitter_x = sampling.halton(idx, sampling.DIM_PIXEL_X)
-    jitter_y = sampling.halton(idx, sampling.DIM_PIXEL_Y)
-    uv_x = (px + jitter_x) / w * 2.0 - 1.0
-    uv_y = (py + jitter_y) / h * 2.0 - 1.0
-    cam = data.camera
-    d = _normalize(uv_x[:, None] * cam.right[None]
-                   + uv_y[:, None] * cam.up[None] + cam.forward[None])
-    o = cam.position[None].expand(p, 3)
+        # Camera ray generation (reference: Raytracing.metal:201-218).
+        jitter_x = sampling.halton(idx, sampling.DIM_PIXEL_X)
+        jitter_y = sampling.halton(idx, sampling.DIM_PIXEL_Y)
+        uv_x = (px + jitter_x) / w * 2.0 - 1.0
+        uv_y = (py + jitter_y) / h * 2.0 - 1.0
+        cam = data.camera
+        d = _normalize(uv_x[:, None] * cam.right[None]
+                       + uv_y[:, None] * cam.up[None] + cam.forward[None])
+        o = cam.position[None].expand(p, 3)
 
-    tracers = tuple(tracers or make_tracers(data, spec, tracer, block))
+    tracers = tuple(tracers or make_tracers(
+        data, spec, tracer, block, count_visits=tele,
+        counts=data.clu_counts if cfg.chunk_skip else None))
     closest_fn, any_fn = tracers[:2]
     closest_rank_fn = (tracers[2] if len(tracers) > 2 else
                        make_closest_rank(data, spec, cfg, tracer, closest_fn))
@@ -402,7 +465,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         bounce's sort keys from one ``nearest_cluster_pair`` sweep?  Only
         where both use the exact broad phase over the shared origin, which
         refraction breaks (a refracted ray starts inside the surface)."""
-        return (cfg.pair_broadphase and not fused_keys and not exact
+        return (cfg.pair_broadphase and not fused_keys and not dir_keys
                 and not cfg.enable_refraction
                 and cfg.sort_key == "cluster2" and bounce < shadow_key_from
                 and shadow_sorts_at(bounce) and bounce + 1 < cfg.max_bounces
@@ -415,7 +478,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         broad phase proved can hit no cluster; None when the fold is off)
         and the sorted rank keys (None unless :func:`rank_at_sort`)."""
         known_miss = rank_keys = None
-        if cfg.sort_bounces and exact:
+        if cfg.sort_bounces and dir_keys:
             # dir_major: direction octant, then origin Morton (the JAX
             # package's key where the cluster keys are off)
             octant = ((d[:, 0] > 0).to(torch.int32)
@@ -502,7 +565,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         alive = skey < _DEAD_KEY
         if rank_keys is not None:
             rank_keys = tuple(k[perm] for k in rank_keys)
-        if cfg.sort_bounces and cfg.cluster_miss_fold and not exact:
+        if cfg.sort_bounces and cfg.cluster_miss_fold and not dir_keys:
             # the no-cluster group sits just below the dead sentinel
             known_miss = alive & ((skey >> (30 - cbits)) == nc_tot)
         return o, d, color, accum, idx, cur, alive, known_miss, rank_keys
@@ -510,9 +573,13 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     def shadow_trace(bounce, shadow_o, sdir, sdist, light_idx, tri,
                      kernel_shadow, sk1, pair_scid):
         """The any-hit pass of one bounce, through the shadow re-sort where
-        it applies; returns (N,) occlusion in the caller's ray order."""
+        it applies.  Returns the (N,) occlusion in the caller's ray order,
+        the mask the pass traced (after the re-sort's fold) in that order,
+        and with telemetry the pass's visits in its own ray order."""
         if not shadow_sorts_at(bounce):
-            return any_fn(shadow_o, sdir, sdist, kernel_shadow)
+            res = any_fn(shadow_o, sdir, sdist, kernel_shadow)
+            return ((res[0], kernel_shadow, res[1]) if tele
+                    else (res, kernel_shadow, None))
         # Shadow origins are this bounce's scattered hit points and the
         # direction follows from the origin (it points at the light), so the
         # key is (nearest cluster the segment can hit, light, origin
@@ -522,7 +589,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         # ``kernel_shadow``).
         m = _morton_512(shadow_o, data)
         bits_l = max(1, (lcount - 1).bit_length())
-        if exact:
+        if dir_keys:
             # light-major: light, then origin Morton
             shift = 29 - bits_l
             skey = (light_idx << shift) | (m if shift >= 27
@@ -551,7 +618,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                                        data.clu_planes, bvh, max_t=sdist)
             if cfg.cluster_miss_fold:
                 kernel_shadow = kernel_shadow & (scid < nc_tot)
-        if not exact:
+        if not dir_keys:
             cbits_s = max(1, nc_tot.bit_length())
             mbits_s = max(0, 30 - cbits_s - bits_l)
             skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
@@ -560,9 +627,12 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         skey, perm = torch.sort(skey)
         res = any_fn(shadow_o[perm], sdir[perm], sdist[perm],
                      skey < _DEAD_KEY)
+        visits = None
+        if tele:
+            res, visits = res
         occluded = torch.empty_like(res)
         occluded[perm] = res  # back to the caller's order
-        return occluded
+        return occluded, kernel_shadow, visits
 
     def bounce_tail(bounce, o, d, color, accum, idx, alive, known_miss,
                     rank_keys):
@@ -570,235 +640,279 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         the bounce continuation: everything after the compaction sort.
         Returns the per-ray state and the next bounce's carried keys (None
         unless :func:`pair_at`)."""
-        stats["closest_rays"] += alive.sum()
+        n_alive = alive.sum()
+        stats["closest_rays"] += n_alive
+        if cfg.telemetry:
+            stats[f"live_b{bounce}"] = n_alive
+        if cfg.export_rays:
+            # a strided sample of this pass's rays for the sah_rays builder
+            st = cfg.export_rays
+            stats[f"rays_b{bounce}"] = torch.cat(
+                [o[::st], d[::st],
+                 torch.full((o[::st].shape[0], 1), math.inf, device=dev),
+                 alive[::st, None].float()], dim=1)
         mats = data.materials
         # The cluster tracers' closest pass is always seeded on the host
         # side: the port's cluster kernels have no in-kernel global-set
         # test.
-        m_kernel = alive
-        gkey = seed = None
-        if known_miss is not None:
-            m_kernel = alive & ~known_miss
-            if bvh.num_global:
-                # one global pass seeds the kernel (folded rays start from
-                # the init key) and gives the folded rays their hits below
-                gkey = trace_cuda.global_seed_keys(o, d, alive,
+        with named_scope("global passes"):
+            m_kernel = alive
+            gkey = seed = None
+            if known_miss is not None:
+                m_kernel = alive & ~known_miss
+                if bvh.num_global:
+                    # one global pass seeds the kernel (folded rays start from
+                    # the init key) and gives the folded rays their hits below
+                    gkey = trace_cuda.global_seed_keys(o, d, alive,
+                                                       data.tri_planes, bvh)
+                    seed = torch.where(known_miss, trace_cuda._INIT_KEY, gkey)
+            elif exact:
+                pass  # the exact tracers test the global set themselves
+            elif bvh.num_global and cfg.fused_broadphase:
+                seed = _fused_keys(tracer, cfg, data, bvh, o, d, alive,
+                                   with_clusters=False)[2]
+            elif bvh.num_global:
+                seed = trace_cuda.global_seed_keys(o, d, alive,
                                                    data.tri_planes, bvh)
-                seed = torch.where(known_miss, trace_cuda._INIT_KEY, gkey)
-        elif exact:
-            pass  # the exact tracers test the global set themselves
-        elif bvh.num_global and cfg.fused_broadphase:
-            seed = _fused_keys(tracer, cfg, data, bvh, o, d, alive,
-                               with_clusters=False)[2]
-        elif bvh.num_global:
-            seed = trace_cuda.global_seed_keys(o, d, alive, data.tri_planes,
-                                               bvh)
-        if rank_keys is not None:
-            hit, unresolved = closest_rank_fn(o, d, m_kernel, rank_keys, seed)
-            stats[f"rank_unresolved_b{bounce}"] = unresolved
-        else:
-            hit = closest_fn(o, d, m_kernel, seed)
-        if gkey is not None:
-            # Global-set hits of the folded rays, in the packing the kernel
-            # would have returned; sky rays stay misses.
-            gfound = known_miss & (gkey < trace_cuda._MISS_KEY)
-            hit = Hit(t=torch.where(gfound, trace_cuda._key_to_t(gkey),
-                                    hit.t),
-                      u=hit.u, v=hit.v,
-                      tri=torch.where(
-                          gfound,
-                          bvh.global_base + (gkey & trace_cuda.IDX_MASK),
-                          hit.tri))
-        if cfg.env_map and spec.has_env_map:
-            escaped = alive & ~hit.found
-            accum = accum + torch.where(escaped[:, None],
-                                        color * _env_lookup(data.env_map, d),
-                                        0.0)
-        alive = alive & hit.found  # the megakernel's break on miss (:246-247)
-        tri = hit.tri.clamp(min=0)
-        row = data.shade_table[tri.long()]
-        mid = row[:, 15].long() if shade_ext else None  # hit material
+        with named_scope("closest trace"):
+            if rank_keys is not None:
+                res = closest_rank_fn(o, d, m_kernel, rank_keys, seed)
+                hit = res[0]
+                stats[f"rank_unresolved_b{bounce}"] = res[1]
+                if tele:
+                    stats[f"visits_b{bounce}"] = res[2]
+            else:
+                hit = closest_fn(o, d, m_kernel, seed)
+                if tele:
+                    hit, stats[f"visits_b{bounce}"] = hit
+            if gkey is not None:
+                # Global-set hits of the folded rays, in the packing the kernel
+                # would have returned; sky rays stay misses.
+                gfound = known_miss & (gkey < trace_cuda._MISS_KEY)
+                hit = Hit(t=torch.where(gfound, trace_cuda._key_to_t(gkey),
+                                        hit.t),
+                          u=hit.u, v=hit.v,
+                          tri=torch.where(
+                              gfound,
+                              bvh.global_base + (gkey & trace_cuda.IDX_MASK),
+                              hit.tri))
+        with named_scope("shade"):
+            if cfg.env_map and spec.has_env_map:
+                escaped = alive & ~hit.found
+                env = _env_lookup(data.env_map, d)
+                accum = accum + torch.where(escaped[:, None], color * env,
+                                            0.0)
+            # the megakernel's break on miss (:246-247)
+            alive = alive & hit.found
+            tri = hit.tri.clamp(min=0)
+            row = data.shade_table[tri.long()]
+            mid = row[:, 15].long() if shade_ext else None  # hit material
 
-        if exact:
-            t_hit = hit.t
-        else:
-            # Exact hit distance from the winner's plane [n, n.v0] in the
-            # shade row: t = (n.v0 - n.o) / (n.d); the tracer's t is
-            # chopped.
-            nrow = row[:, 16:19]
-            den = (nrow * d).sum(-1)
-            num = row[:, 19] - (nrow * o).sum(-1)
-            tiny = torch.where(den < 0, -1e-20, 1e-20).to(den.dtype)
-            t_hit = num / torch.where(den.abs() < 1e-20, tiny, den)
-        # Dead lanes keep pos = o (no BIG_T overflow into the light math).
-        pos = o + d * torch.where(alive, t_hit, 0.0)[:, None]
-        # ns = M pos + m0: barycentric corner-normal interpolation
-        # (reference: Raytracing.metal:60-73).
-        ns = (row[:, 0:3] * pos[:, 0:1] + row[:, 3:6] * pos[:, 1:2]
-              + row[:, 6:9] * pos[:, 2:3] + row[:, 9:12])
-        ns = _normalize(ns)
-        base_color = row[:, 12:15]
-        if cfg.enable_textures and spec.has_textures:
-            # uv(p) = A p + b from the triangle's affine UV row
-            uvrow = data.uv_table[tri.long()]
-            u_t = (uvrow[:, 0] * pos[:, 0] + uvrow[:, 2] * pos[:, 1]
-                   + uvrow[:, 4] * pos[:, 2] + uvrow[:, 6])
-            v_t = (uvrow[:, 1] * pos[:, 0] + uvrow[:, 3] * pos[:, 1]
-                   + uvrow[:, 5] * pos[:, 2] + uvrow[:, 7])
-            base_color = base_color * _texel(
-                data, mid, u_t, v_t, cfg.texture_filter == "bilinear")
-        if cfg.enable_emission:
-            accum = accum + torch.where(alive[:, None],
-                                        color * mats.emission[mid], 0.0)
+            if exact:
+                t_hit = hit.t
+            else:
+                # Exact hit distance from the winner's plane [n, n.v0] in the
+                # shade row: t = (n.v0 - n.o) / (n.d); the tracer's t is
+                # chopped.
+                nrow = row[:, 16:19]
+                den = (nrow * d).sum(-1)
+                num = row[:, 19] - (nrow * o).sum(-1)
+                tiny = torch.where(den < 0, -1e-20, 1e-20).to(den.dtype)
+                t_hit = num / torch.where(den.abs() < 1e-20, tiny, den)
+            # Dead lanes keep pos = o (no BIG_T overflow into the light math).
+            pos = o + d * torch.where(alive, t_hit, 0.0)[:, None]
+            # ns = M pos + m0: barycentric corner-normal interpolation
+            # (reference: Raytracing.metal:60-73).
+            ns = (row[:, 0:3] * pos[:, 0:1] + row[:, 3:6] * pos[:, 1:2]
+                  + row[:, 6:9] * pos[:, 2:3] + row[:, 9:12])
+            ns = _normalize(ns)
+            base_color = row[:, 12:15]
+            if cfg.enable_textures and spec.has_textures:
+                # uv(p) = A p + b from the triangle's affine UV row
+                uvrow = data.uv_table[tri.long()]
+                u_t = (uvrow[:, 0] * pos[:, 0] + uvrow[:, 2] * pos[:, 1]
+                       + uvrow[:, 4] * pos[:, 2] + uvrow[:, 6])
+                v_t = (uvrow[:, 1] * pos[:, 0] + uvrow[:, 3] * pos[:, 1]
+                       + uvrow[:, 5] * pos[:, 2] + uvrow[:, 7])
+                base_color = base_color * _texel(
+                    data, mid, u_t, v_t, cfg.texture_filter == "bilinear")
+            if cfg.enable_emission:
+                accum = accum + torch.where(alive[:, None],
+                                            color * mats.emission[mid], 0.0)
 
-        # One uniformly random light per ray (reference: :272-275).
-        lu = sampling.halton(idx, sampling.bounce_dim(bounce, 0))
-        light_idx = select_light(lu, lcount)
-        r_light = torch.stack(
-            [sampling.halton(idx, sampling.bounce_dim(bounce, 1)),
-             sampling.halton(idx, sampling.bounce_dim(bounce, 2))], dim=-1)
-        ls = sample_lights(data.lights, light_idx, r_light, pos)
+            # One uniformly random light per ray (reference: :272-275).
+            lu = sampling.halton(idx, sampling.bounce_dim(bounce, 0))
+            light_idx = select_light(lu, lcount)
+            r_light = torch.stack(
+                [sampling.halton(idx, sampling.bounce_dim(bounce, 1)),
+                 sampling.halton(idx, sampling.bounce_dim(bounce, 2))], dim=-1)
+            ls = sample_lights(data.lights, light_idx, r_light, pos)
 
-        ndotl = torch.clamp((ns * ls.direction).sum(-1), 0.0, 1.0)
-        lcolor = ls.color * ndotl[:, None] * lcount  # :331-335
-        # Diffuse throughput for this vertex's light sample (:339).
-        dcolor = torch.where(alive[:, None], color * base_color, color)
-        do_shadow = alive & (sampling.norm(lcolor)[:, 0] > 1e-4)  # :341
-        stats["shadow_rays"] += do_shadow.sum()
-        shadow_o = pos + ns * 1e-3  # :350
-        sdist = ls.distance - 1e-3
-        # Global-set occlusion on the host side of the kernel: rays the
-        # scene-spanning planes occlude leave the kernel's mask (they still
-        # count as traced shadow rays).  The fused pass also gives the
-        # shadow sort's cluster key where that is the exact one.
-        sk1 = None
-        want_skey = (shadow_sorts_at(bounce) and bounce < shadow_key_from
-                     and fused_keys)
-        if cfg.fused_broadphase and (want_skey or fold_global):
-            sk1, _, socc = _fused_keys(
-                tracer, cfg, data, bvh, shadow_o, ls.direction, do_shadow,
-                max_t=sdist, with_clusters=want_skey, any_mode=True)
-            g_occ = socc > 0 if fold_global else torch.zeros_like(do_shadow)
-        elif fold_global:
-            g_occ = trace_cuda.global_any_hit(shadow_o, ls.direction, sdist,
-                                              do_shadow, data.tri_planes, bvh)
-        else:
-            g_occ = torch.zeros_like(do_shadow)
-        kernel_shadow = do_shadow & ~g_occ
+            ndotl = torch.clamp((ns * ls.direction).sum(-1), 0.0, 1.0)
+            lcolor = ls.color * ndotl[:, None] * lcount  # :331-335
+            # Diffuse throughput for this vertex's light sample (:339).
+            dcolor = torch.where(alive[:, None], color * base_color, color)
+            do_shadow = alive & (sampling.norm(lcolor)[:, 0] > 1e-4)  # :341
+            n_shadow = do_shadow.sum()
+            stats["shadow_rays"] += n_shadow
+            shadow_o = pos + ns * 1e-3  # :350
+            sdist = ls.distance - 1e-3
+        with named_scope("global passes"):
+            # Global-set occlusion on the host side of the kernel: rays the
+            # scene-spanning planes occlude leave the kernel's mask (they still
+            # count as traced shadow rays).  The fused pass also gives the
+            # shadow sort's cluster key where that is the exact one.
+            sk1 = None
+            want_skey = (shadow_sorts_at(bounce) and bounce < shadow_key_from
+                         and fused_keys)
+            if cfg.fused_broadphase and (want_skey or fold_global):
+                sk1, _, socc = _fused_keys(
+                    tracer, cfg, data, bvh, shadow_o, ls.direction, do_shadow,
+                    max_t=sdist, with_clusters=want_skey, any_mode=True)
+                g_occ = (socc > 0 if fold_global
+                         else torch.zeros_like(do_shadow))
+            elif fold_global:
+                g_occ = trace_cuda.global_any_hit(shadow_o, ls.direction,
+                                                  sdist, do_shadow,
+                                                  data.tri_planes, bvh)
+            else:
+                g_occ = torch.zeros_like(do_shadow)
+            kernel_shadow = do_shadow & ~g_occ
 
-        # The bounce continuation (reference: :384-391, a cosine-weighted
-        # diffuse bounce), before the shadow trace: the next direction
-        # feeds the pair sweep.  Without refraction the next origin is the
-        # shadow origin, bit for bit.
-        r_bounce = torch.stack(
-            [sampling.halton(idx, sampling.bounce_dim(bounce, 3)),
-             sampling.halton(idx, sampling.bounce_dim(bounce, 4))], dim=-1)
-        local = sampling.sample_cosine_weighted_hemisphere(r_bounce)
-        d_next = sampling.align_hemisphere_with_normal(local, ns)
-        color_next, o_next, nee_w = dcolor, shadow_o, None
-        # The extensions' Halton dimensions lie past the reference's
-        # schedule, so the shared ones keep their values.
-        ext_dim = 2 + 5 * cfg.max_bounces + bounce
-        if cfg.enable_specular:
-            # per ray, the diffuse lobe or a Phong lobe about the mirror
-            # direction, chosen by Ks against Kd
-            spec_color = mats.specular[mid]
-            shininess = mats.specular_exponent[mid][:, None]
-            kd_max = base_color.amax(dim=-1)
-            ks_max = spec_color.amax(dim=-1)
-            p_spec = ks_max / torch.clamp(kd_max + ks_max, min=1e-6)
-            take_spec = (alive & (sampling.halton(idx, ext_dim) < p_spec)
-                         & (ks_max > 0.0))
-            refl = d - 2.0 * (d * ns).sum(-1, keepdim=True) * ns
-            cos_a = r_bounce[:, 1:2] ** (1.0 / (shininess + 1.0))
-            sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
-            phi = 2.0 * math.pi * r_bounce[:, 0:1]
-            lobe = torch.cat([sin_a * torch.cos(phi), cos_a,
-                              sin_a * torch.sin(phi)], dim=-1)
-            d_spec = sampling.align_hemisphere_with_normal(lobe, refl)
-            # keep specular samples above the surface
-            below = (d_spec * ns).sum(-1, keepdim=True) <= 0.0
-            d_spec = torch.where(below, refl, d_spec)
-            p_spec_c = torch.clamp(p_spec, 1e-6, 1.0 - 1e-6)[:, None]
-            spec_tp = color * spec_color / p_spec_c
-            diff_tp = torch.where(alive[:, None],
-                                  color * base_color / (1.0 - p_spec_c),
-                                  color)
-            d_next = torch.where(take_spec[:, None], d_spec, d_next)
-            color_next = torch.where(take_spec[:, None], spec_tp, diff_tp)
-        if cfg.enable_refraction:
-            # A dielectric (dissolve < 1, Ni > 0) transmits with
-            # probability 1 - dissolve by Snell, reflecting by Schlick's
-            # Fresnel or total internal reflection, on the side-aware
-            # normal; its diffuse layer, this vertex's light sample
-            # included, carries the dissolve share.  Shadow rays still
-            # take glass as an occluder (as in the JAX package).
-            ni_r = mats.refraction_index[mid]
-            dvis = mats.dissolve[mid]
-            transmissive = alive & (dvis < 1.0) & (ni_r > 0.0)
-            nee_w = torch.where(transmissive, dvis, 1.0)[:, None]
-            take_t = transmissive & (
-                sampling.halton(idx, ext_dim + cfg.max_bounces) >= dvis)
-            inside = (d * ns).sum(-1) > 0.0  # a back-face hit
-            n_eff = torch.where(inside[:, None], -ns, ns)
-            ci = torch.clamp(-(d * n_eff).sum(-1), 0.0, 1.0)
-            ni_s = torch.clamp(ni_r, min=1.0 + 1e-6)
-            eta = torch.where(inside, ni_s, 1.0 / ni_s)
-            sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
-            tir = sin2_t > 1.0
-            cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-            d_refr = _normalize(eta[:, None] * d
-                                + (eta * ci - cos_t)[:, None] * n_eff)
-            d_refl = _normalize(d + 2.0 * ci[:, None] * n_eff)
-            f0 = ((ni_s - 1.0) / (ni_s + 1.0)) ** 2
-            c1 = 1.0 - ci
-            c2 = c1 * c1  # (1 - ci)^5 by the JAX package's integer power
-            fr = torch.where(tir, 1.0, f0 + (1.0 - f0) * (c1 * (c2 * c2)))
-            refl_t = sampling.halton(idx, ext_dim + 2 * cfg.max_bounces) < fr
-            d_next = torch.where(
-                take_t[:, None],
-                torch.where(refl_t[:, None], d_refl, d_refr), d_next)
-            # glass is tinted by Kd where it has one ("clear" otherwise)
-            tint = torch.where(base_color.amax(dim=-1, keepdim=True) > 1e-4,
-                               base_color, 1.0)
-            t_tp = torch.where(alive[:, None], color * tint, color)
-            color_next = torch.where(take_t[:, None], t_tp, color_next)
-            # a refracted ray goes on through the surface
-            off_n = torch.where(take_t[:, None],
-                                torch.where(refl_t[:, None], n_eff, -n_eff),
-                                ns)
-            o_next = pos + off_n * 1e-3
+        with named_scope("bounce + accumulate"):
+            # The bounce continuation (reference: :384-391, a cosine-weighted
+            # diffuse bounce), before the shadow trace: the next direction
+            # feeds the pair sweep.  Without refraction the next origin is the
+            # shadow origin, bit for bit.
+            r_bounce = torch.stack(
+                [sampling.halton(idx, sampling.bounce_dim(bounce, 3)),
+                 sampling.halton(idx, sampling.bounce_dim(bounce, 4))], dim=-1)
+            local = sampling.sample_cosine_weighted_hemisphere(r_bounce)
+            d_next = sampling.align_hemisphere_with_normal(local, ns)
+            color_next, o_next, nee_w = dcolor, shadow_o, None
+            # The extensions' Halton dimensions lie past the reference's
+            # schedule, so the shared ones keep their values.
+            ext_dim = 2 + 5 * cfg.max_bounces + bounce
+            if cfg.enable_specular:
+                # per ray, the diffuse lobe or a Phong lobe about the mirror
+                # direction, chosen by Ks against Kd
+                spec_color = mats.specular[mid]
+                shininess = mats.specular_exponent[mid][:, None]
+                kd_max = base_color.amax(dim=-1)
+                ks_max = spec_color.amax(dim=-1)
+                p_spec = ks_max / torch.clamp(kd_max + ks_max, min=1e-6)
+                take_spec = (alive & (sampling.halton(idx, ext_dim) < p_spec)
+                             & (ks_max > 0.0))
+                refl = d - 2.0 * (d * ns).sum(-1, keepdim=True) * ns
+                cos_a = r_bounce[:, 1:2] ** (1.0 / (shininess + 1.0))
+                sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+                phi = 2.0 * math.pi * r_bounce[:, 0:1]
+                lobe = torch.cat([sin_a * torch.cos(phi), cos_a,
+                                  sin_a * torch.sin(phi)], dim=-1)
+                d_spec = sampling.align_hemisphere_with_normal(lobe, refl)
+                # keep specular samples above the surface
+                below = (d_spec * ns).sum(-1, keepdim=True) <= 0.0
+                d_spec = torch.where(below, refl, d_spec)
+                p_spec_c = torch.clamp(p_spec, 1e-6, 1.0 - 1e-6)[:, None]
+                spec_tp = color * spec_color / p_spec_c
+                diff_tp = torch.where(alive[:, None],
+                                      color * base_color / (1.0 - p_spec_c),
+                                      color)
+                d_next = torch.where(take_spec[:, None], d_spec, d_next)
+                color_next = torch.where(take_spec[:, None], spec_tp, diff_tp)
+            if cfg.enable_refraction:
+                # A dielectric (dissolve < 1, Ni > 0) transmits with
+                # probability 1 - dissolve by Snell, reflecting by Schlick's
+                # Fresnel or total internal reflection, on the side-aware
+                # normal; its diffuse layer, this vertex's light sample
+                # included, carries the dissolve share.  Shadow rays still
+                # take glass as an occluder (as in the JAX package).
+                ni_r = mats.refraction_index[mid]
+                dvis = mats.dissolve[mid]
+                transmissive = alive & (dvis < 1.0) & (ni_r > 0.0)
+                nee_w = torch.where(transmissive, dvis, 1.0)[:, None]
+                take_t = transmissive & (
+                    sampling.halton(idx, ext_dim + cfg.max_bounces) >= dvis)
+                inside = (d * ns).sum(-1) > 0.0  # a back-face hit
+                n_eff = torch.where(inside[:, None], -ns, ns)
+                ci = torch.clamp(-(d * n_eff).sum(-1), 0.0, 1.0)
+                ni_s = torch.clamp(ni_r, min=1.0 + 1e-6)
+                eta = torch.where(inside, ni_s, 1.0 / ni_s)
+                sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
+                tir = sin2_t > 1.0
+                cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+                d_refr = _normalize(eta[:, None] * d
+                                    + (eta * ci - cos_t)[:, None] * n_eff)
+                d_refl = _normalize(d + 2.0 * ci[:, None] * n_eff)
+                f0 = ((ni_s - 1.0) / (ni_s + 1.0)) ** 2
+                c1 = 1.0 - ci
+                c2 = c1 * c1  # (1 - ci)^5 by the JAX package's integer power
+                fr = torch.where(tir, 1.0, f0 + (1.0 - f0) * (c1 * (c2 * c2)))
+                refl_t = sampling.halton(
+                    idx, ext_dim + 2 * cfg.max_bounces) < fr
+                d_next = torch.where(
+                    take_t[:, None],
+                    torch.where(refl_t[:, None], d_refl, d_refr), d_next)
+                # glass is tinted by Kd where it has one ("clear" otherwise)
+                tinted = base_color.amax(dim=-1, keepdim=True) > 1e-4
+                tint = torch.where(tinted, base_color, 1.0)
+                t_tp = torch.where(alive[:, None], color * tint, color)
+                color_next = torch.where(take_t[:, None], t_tp, color_next)
+                # a refracted ray goes on through the surface
+                off_n = torch.where(
+                    take_t[:, None],
+                    torch.where(refl_t[:, None], n_eff, -n_eff), ns)
+                o_next = pos + off_n * 1e-3
 
-        pair_scid = pair_bp = None
-        if pair_at(bounce):
-            rank_next = rank_at_sort(bounce + 1)
-            res = nearest_cluster_pair(
-                shadow_o, ls.direction, sdist, kernel_shadow, d_next, alive,
-                data.clu_planes, bvh, ranks=3 if rank_next else 2,
-                return_packed=rank_next)
-            pair_scid, pair_bp = res[0], res[1:]
+        with named_scope("sort keys"):
+            pair_scid = pair_bp = None
+            if pair_at(bounce):
+                rank_next = rank_at_sort(bounce + 1)
+                res = nearest_cluster_pair(
+                    shadow_o, ls.direction, sdist, kernel_shadow, d_next,
+                    alive, data.clu_planes, bvh, ranks=3 if rank_next else 2,
+                    return_packed=rank_next)
+                pair_scid, pair_bp = res[0], res[1:]
 
-        occluded = shadow_trace(bounce, shadow_o, ls.direction, sdist,
-                                light_idx, tri, kernel_shadow, sk1, pair_scid)
-        visible = do_shadow & ~occluded & ~g_occ
-        nee = lcolor * dcolor if nee_w is None else lcolor * dcolor * nee_w
-        accum = accum + torch.where(visible[:, None], nee,
-                                    torch.zeros_like(accum))  # :371-373
+        with named_scope("shadow trace"):
+            occluded, kernel_shadow, svisits = shadow_trace(
+                bounce, shadow_o, ls.direction, sdist, light_idx, tri,
+                kernel_shadow, sk1, pair_scid)
+        if tele:
+            stats[f"shadow_visits_b{bounce}"] = svisits
+        if cfg.export_rays:
+            # a strided sample of this pass's shadow segments
+            st = cfg.export_rays
+            stats[f"srays_b{bounce}"] = torch.cat(
+                [shadow_o[::st], ls.direction[::st], sdist[::st, None],
+                 kernel_shadow[::st, None].float()], dim=1)
+        if cfg.telemetry:
+            # shadow rays occluded, by the global set or the pass
+            stats[f"shadow_b{bounce}"] = n_shadow
+            stats[f"shadow_occn_b{bounce}"] = (
+                do_shadow & (occluded | g_occ)).sum()
+        with named_scope("bounce + accumulate"):
+            visible = do_shadow & ~occluded & ~g_occ
+            nee = lcolor * dcolor if nee_w is None else lcolor * dcolor * nee_w
+            accum = accum + torch.where(visible[:, None], nee,
+                                        torch.zeros_like(accum))  # :371-373
         return o_next, d_next, color_next, accum, alive, pair_bp
 
     carried_bp = None
     for bounce in range(cfg.max_bounces):
         known_miss = rank_keys = None
         if sorts_at(bounce):
-            (o, d, color, accum, idx, cur, alive, known_miss,
-             rank_keys) = bounce_sort(bounce, o, d, color, accum, idx, cur,
-                                      alive, carried_bp)
+            with named_scope("sort keys"):
+                (o, d, color, accum, idx, cur, alive, known_miss,
+                 rank_keys) = bounce_sort(bounce, o, d, color, accum, idx,
+                                          cur, alive, carried_bp)
         o, d, color, accum, alive, carried_bp = bounce_tail(
             bounce, o, d, color, accum, idx, alive, known_miss, rank_keys)
 
     if cfg.compaction and cfg.max_bounces > 1:
-        radiance = torch.empty_like(accum)
-        radiance[cur.long()] = accum  # back to pixel order
+        with named_scope("bounce + accumulate"):
+            radiance = torch.empty_like(accum)
+            radiance[cur.long()] = accum  # back to pixel order
     else:
         radiance = accum
     return radiance[:n], stats
@@ -849,6 +963,7 @@ class Renderer:
         self.tracer = resolve_tracer(cfg, self.device)
         self.data, self.spec = scene.build(
             cluster_size=cfg.cluster_size, builder=cfg.bvh_builder,
+            presplit=cfg.bvh_presplit, builder_alpha=cfg.bvh_alpha,
             device=self.device)
         self.offsets = make_pixel_offsets(cfg, self.device)
         self.reset()
@@ -874,6 +989,35 @@ class Renderer:
                 [stats["closest_rays"], stats["shadow_rays"]]).float()
             self.frame_index += 1
 
+    def refine(self, stride: int = 64) -> bool:
+        """Rebuild the clusters to this render's measured rays, then go on
+        progressively (``Renderer.refine`` of the JAX package).
+
+        Renders one extra sample with ``RenderConfig.export_rays=stride``,
+        not folded into the average, to take every ``stride``-th bounce ray
+        and shadow segment the frame traces, and rebuilds with the
+        ``sah_rays`` builder, which scores splits by those rays' slab hits.
+        The image is the same (clustering only moves work).  The
+        fingerprint is pinned first, so checkpoints written after a refine
+        load in unrefined renderers of either package.  Returns False when
+        the sample holds no live ray (nothing is rebuilt)."""
+        ecfg = dataclasses.replace(self.cfg, export_rays=stride)
+        _, stats = render_sample(self.data, self.spec, ecfg, self.offsets,
+                                 self.frame_index, self.tracer)
+        rows = [v.cpu().numpy() for k, v in sorted(stats.items())
+                if k.startswith(("rays_b", "srays_b"))]
+        if not rows:
+            return False
+        rays = np.concatenate(rows, axis=0)
+        if not (rays[:, 7] > 0).any():
+            return False
+        self.fingerprint()  # pin the identity the checkpoints carry
+        self.data, self.spec = self.scene.build(
+            cluster_size=self.cfg.cluster_size, builder="sah_rays",
+            presplit=self.cfg.bvh_presplit, builder_alpha=self.cfg.bvh_alpha,
+            rays=rays, device=self.device)
+        return True
+
     @property
     def total_closest_rays(self) -> int:
         """Total closest-hit rays traced (waits for the device)."""
@@ -898,12 +1042,16 @@ class Renderer:
     def fingerprint(self) -> str:
         """Scene + config identity baked into checkpoints (the JAX
         package's string, so checkpoints load across the two packages).
-        The tracer is not part of it: the tracers give the same image."""
-        s = (f"{self.spec.bvh}|L{self.spec.light_count}"
-             f"|M{self.spec.material_count}|E{int(self.spec.has_env_map)}"
-             f"|{self.cfg.width}x{self.cfg.height}|b{self.cfg.max_bounces}"
-             f"|seed{self.cfg.seed}")
-        return hashlib.sha1(s.encode()).hexdigest()[:16]
+        The tracer is not part of it: the tracers give the same image.
+        Pinned at first use, as in the JAX package: :meth:`refine` changes
+        the clusters, not the image."""
+        if getattr(self, "_fingerprint", None) is None:
+            s = (f"{self.spec.bvh}|L{self.spec.light_count}"
+                 f"|M{self.spec.material_count}|E{int(self.spec.has_env_map)}"
+                 f"|{self.cfg.width}x{self.cfg.height}"
+                 f"|b{self.cfg.max_bounces}|seed{self.cfg.seed}")
+            self._fingerprint = hashlib.sha1(s.encode()).hexdigest()[:16]
+        return self._fingerprint
 
     @property
     def total_samples(self) -> int:

@@ -5,10 +5,8 @@ pre-transformed to world space and concatenated into one triangle table with
 a per-triangle material id; the cluster BVH is built on the host (numpy) and
 the kernel layouts (cluster boxes, triangle planes, shade rows) are packed
 with PyTorch on the CPU, then moved to the requested device, so a scene's
-tables are the same bits on every device.
-
-Not ported yet (ROADMAP.md): the ``max_edge_frac`` subdivision raises
-``NotImplementedError``.
+tables are the same bits on every device.  Every builder of ``accel`` and
+the ``max_edge_frac`` longest-edge subdivision build as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,8 +26,8 @@ from .types import (Camera, Light, LightTable, Material, MaterialTable,
                     spot_light)
 
 __all__ = ["GeometryTable", "SceneData", "SceneSpec", "Instance", "Scene",
-           "flatten_instances", "build_scene_data", "scene_data_arrays",
-           "scene_data_from_reference"]
+           "flatten_instances", "subdivide_oversized", "build_scene_data",
+           "scene_data_arrays", "scene_data_from_reference"]
 
 
 @dataclasses.dataclass
@@ -63,7 +61,9 @@ class SceneData:
     # normal map ns(p) = M p + m0 (M stored by column), albedo, material id,
     # and the geometric plane the renderer recomputes exact t from.
     shade_table: torch.Tensor  # (T, 20) f32
-    tri_src: torch.Tensor  # (T,) i32 leaf slot -> source triangle (-1 pad)
+    # Leaf slot -> source triangle (-1 padding).  With the SBVH pre-split a
+    # source triangle may own several slots, whose rows are identical.
+    tri_src: torch.Tensor  # (T,) i32
     clu_counts: torch.Tensor  # (NS*S,) i32 real triangles per cluster slot
     env_map: Optional[torch.Tensor] = None  # (He, We, 3) f32 or None
     # Texture extension (None when no material has a texture): per-triangle
@@ -149,6 +149,58 @@ def flatten_instances(instances: Sequence[Instance]):
             np.concatenate(mids), materials, cat(uvcs))
 
 
+def subdivide_oversized(v0, e1, e2, n0, n1, n2, mid,
+                        max_edge_frac: float = 0.1, max_rounds: int = 24):
+    """Longest-edge bisection of triangles larger than ``max_edge_frac`` of
+    the scene extent (``metal_raytracing_tpu.scene.subdivide_oversized``,
+    line for line).  Midpoint splits with averaged corner normals leave the
+    interpolated shading normal unchanged; only the clusters change."""
+    a, b, c = v0, v0 + e1, v0 + e2
+    scene_lo = np.minimum(np.minimum(a, b), c).min(axis=0)
+    scene_hi = np.maximum(np.maximum(a, b), c).max(axis=0)
+    max_edge = float((scene_hi - scene_lo).max()) * max_edge_frac
+    na, nb, nc = n0, n1, n2
+    for _ in range(max_rounds):
+        lab = np.linalg.norm(b - a, axis=1)
+        lbc = np.linalg.norm(c - b, axis=1)
+        lca = np.linalg.norm(a - c, axis=1)
+        longest = np.stack([lab, lbc, lca], axis=1)
+        which = np.argmax(longest, axis=1)
+        lmax = longest[np.arange(len(which)), which]
+        over = lmax > max_edge
+        if not over.any():
+            break
+        keep = ~over
+        parts_v = [(a[keep], b[keep], c[keep])]
+        parts_n = [(na[keep], nb[keep], nc[keep])]
+        parts_m = [mid[keep]]
+        for w, (i0, i1, i2) in enumerate(((0, 1, 2), (1, 2, 0), (2, 0, 1))):
+            s = over & (which == w)
+            if not s.any():
+                continue
+            vs = [a[s], b[s], c[s]]
+            ns_ = [na[s], nb[s], nc[s]]
+            vm = 0.5 * (vs[i0] + vs[i1])
+            nm = 0.5 * (ns_[i0] + ns_[i1])
+            # split edge (i0, i1): (v0', m, v2') and (m, v1', v2')
+            parts_v.append((vs[i0], vm, vs[i2]))
+            parts_n.append((ns_[i0], nm, ns_[i2]))
+            parts_m.append(mid[s])
+            parts_v.append((vm, vs[i1], vs[i2]))
+            parts_n.append((nm, ns_[i1], ns_[i2]))
+            parts_m.append(mid[s])
+        a = np.concatenate([p[0] for p in parts_v])
+        b = np.concatenate([p[1] for p in parts_v])
+        c = np.concatenate([p[2] for p in parts_v])
+        na = np.concatenate([p[0] for p in parts_n])
+        nb = np.concatenate([p[1] for p in parts_n])
+        nc = np.concatenate([p[2] for p in parts_n])
+        mid = np.concatenate(parts_m)
+    return (a.astype(np.float32), (b - a).astype(np.float32),
+            (c - a).astype(np.float32), na.astype(np.float32),
+            nb.astype(np.float32), nc.astype(np.float32), mid)
+
+
 def _shade_table(geometry: GeometryTable, tri: torch.Tensor,
                  base_color: torch.Tensor) -> torch.Tensor:
     """(T, 20) shade rows; the barycentric corner-normal interpolation
@@ -203,9 +255,14 @@ def _pack_textures(materials: Sequence[Material]):
 def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
                      camera: Camera, cluster_size: int = 384,
                      branching: int = 8, env_map: Optional[np.ndarray] = None,
-                     max_edge_frac: float = 0.0, builder: str = "sah_free", *,
+                     max_edge_frac: float = 0.0, builder: str = "sah_free",
+                     presplit: float = 0.0, builder_alpha: float = 2.0,
+                     rays: Optional[np.ndarray] = None, *,
                      device) -> Tuple[SceneData, SceneSpec]:
-    """Flatten, cluster and pack a scene onto ``device``."""
+    """Flatten, cluster and pack a scene onto ``device``: with
+    ``max_edge_frac`` the oversized triangles subdivided first
+    (:func:`subdivide_oversized`), then ``accel.build_cluster_bvh`` with
+    ``builder``, ``presplit``, ``builder_alpha`` and ``rays``."""
     v0, e1, e2, n0, n1, n2, mid, materials, uvc = flatten_instances(
         instances)
     has_textures = any(m.texture for m in materials)
@@ -214,11 +271,13 @@ def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
             raise ValueError(
                 "max_edge_frac subdivision drops per-corner texcoords but "
                 "this scene has textured materials")
-        raise NotImplementedError(
-            "max_edge_frac subdivision is not ported (ROADMAP.md)")
+        v0, e1, e2, n0, n1, n2, mid = subdivide_oversized(
+            v0, e1, e2, n0, n1, n2, mid, max_edge_frac=max_edge_frac)
+        uvc = np.zeros((v0.shape[0], 3, 2), np.float32)
     order, node_lo, node_hi, bvh_spec = accel.build_cluster_bvh(
         v0, e1, e2, cluster_size=cluster_size, branching=branching,
-        builder=builder)
+        builder=builder, presplit=presplit, builder_alpha=builder_alpha,
+        rays=rays)
 
     # Leaf-slot permutation; padding slots (-1) become degenerate triangles.
     def permute(a: np.ndarray) -> torch.Tensor:
@@ -368,8 +427,10 @@ class Scene:
         return sum(i.model.triangle_count for i in self.instances)
 
     def build(self, cluster_size: int = 384, branching: int = 8,
-              builder: str = "sah_free", *, device):
+              builder: str = "sah_free", presplit: float = 0.0,
+              builder_alpha: float = 2.0, rays=None, *, device):
         return build_scene_data(
             self.instances, self.lights, self.camera(),
             cluster_size=cluster_size, branching=branching,
-            env_map=self.env_map, builder=builder, device=device)
+            env_map=self.env_map, builder=builder, presplit=presplit,
+            builder_alpha=builder_alpha, rays=rays, device=device)

@@ -22,6 +22,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .accel import BUILDERS
+
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32))
@@ -259,6 +261,26 @@ class RenderConfig:
     dissolve < 1) through it by Snell and Schlick, which also turns the
     pair sweep off (shadow and bounce origins differ).
 
+    The scene build: ``bvh_builder`` names the leaf clustering of
+    ``accel.build_cluster_bvh`` (``BUILDERS``), ``bvh_alpha`` is
+    ``sah_chunk``'s per-visit cost in 128-slot chunk tests and
+    ``bvh_presplit`` the SBVH-style reference pre-split budget (extra
+    references as a share of the triangles; 0 is off).  ``chunk_skip``
+    hands the kernels each cluster's real triangle count, so a partly full
+    cluster's leaf test stops at its last real slot (only where the build
+    marks ``partial_clusters``; the image is the same).
+
+    Telemetry: ``telemetry`` adds to the render stats, per bounce b, the
+    live rays entering it (``live_b{b}``), its shadow rays
+    (``shadow_b{b}``) and the occluded ones (``shadow_occn_b{b}``), and
+    for the cluster tracers the clusters each ray dense-tested
+    (``visits_b{b}``, ``shadow_visits_b{b}``; (N,) int32 per ray, in the
+    pass's ray order, where the JAX package counts per 128-ray tile).
+    ``export_rays = k`` adds every k-th closest ray (``rays_b{b}``) and
+    shadow segment (``srays_b{b}``) as (M, 8) rows ``[ox oy oz dx dy dz
+    max_t live]``, the sample the ``sah_rays`` builder reads
+    (``Renderer.refine``).  Neither changes the image.
+
     Every default is the JAX package's but one: ``compaction`` is False
     here.  The sort keys come from an (rays x clusters) elementwise chain
     that XLA fuses into one reduce and eager PyTorch runs as some forty
@@ -276,6 +298,9 @@ class RenderConfig:
     tracer: str = "auto"
     cluster_size: int = 384
     bvh_builder: str = "sah_free"
+    bvh_alpha: float = 2.0
+    chunk_skip: bool = False
+    bvh_presplit: float = 0.0
     ray_block: int = 128
     primary_ray_block: Optional[int] = 512
     shadow_ray_block: Optional[int] = 512
@@ -296,6 +321,8 @@ class RenderConfig:
     enable_textures: bool = False
     texture_filter: str = "nearest"
     env_map: bool = False
+    telemetry: bool = False
+    export_rays: int = 0
 
     def __post_init__(self):
         if self.tracer not in TRACERS:
@@ -310,6 +337,12 @@ class RenderConfig:
         if self.texture_filter not in TEXTURE_FILTERS:
             raise ValueError(f"texture_filter must be one of "
                              f"{TEXTURE_FILTERS}, got {self.texture_filter!r}")
+        if self.bvh_builder not in BUILDERS:
+            raise ValueError(f"bvh_builder must be one of {BUILDERS}, "
+                             f"got {self.bvh_builder!r}")
+        if self.export_rays < 0:
+            raise ValueError(f"export_rays is a stride >= 0, got "
+                             f"{self.export_rays}")
         if self.broadphase_block % 32 or not 0 < self.broadphase_block <= 1024:
             raise ValueError(f"broadphase_block must be a multiple of 32 in "
                              f"[32, 1024], got {self.broadphase_block}")

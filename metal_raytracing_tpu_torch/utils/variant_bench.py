@@ -4,7 +4,7 @@ in turns inside one process on one CUDA GPU.
 
     python3 metal_raytracing_tpu_torch/utils/variant_bench.py \\
         [--flat | --rank | --broadphase] [--render] [--padded NAME ...] \\
-        [NAME=DIR ...]
+        [--no-options NAME ...] [NAME=DIR ...]
 
 By default the hierarchical kernels K3/K4: each ``DIR`` holds a
 ``trace_hier.cu`` and the headers it includes, and the passes are dragon
@@ -21,8 +21,11 @@ into ``build/variants/NAME.so`` and must export the checkout's entry points
 ``launch_any_flat``, ``launch_closest_rank`` or ``launch_broadphase``);
 ``tree`` names the checkout's own kernels.  ``--padded NAME`` gives
 variant NAME's K2 the global set's 128-slot padded width (the TPU kernel's
-chunk) in place of the real slot count that the wrapper passes.  The script
-prints
+chunk) in place of the real slot count that the wrapper passes.
+``--no-options NAME``: variant NAME's K1-K4 / K6 entry points take no
+``counts`` and ``visits`` arguments (the signatures before the kernels had
+those options, as in an older commit's ``csrc/``); the swap drops the two
+arguments, which the timed passes leave null.  The script prints
 
 - the registers and spills of each variant's two kernels (``-Xptxas -v``);
 - for every recorded pass of one sample (the default config's primary,
@@ -82,6 +85,11 @@ RENDERS = {
     "broadphase": (("compaction=True fused_broadphase=True", FUSED),),
 }
 G_SLOTS_ARG = 11  # launch_any_flat's g_slots
+# the argument indexes of `counts` and `visits` in each entry point that
+# takes them
+OPTION_ARGS = {"launch_closest_flat": (11, 14), "launch_any_flat": (12, 14),
+               "launch_closest_hier": (14, 17), "launch_any_hier": (14, 16),
+               "launch_closest_rank": (11, 14)}
 
 
 def log(msg: str) -> None:
@@ -140,16 +148,38 @@ def padded_global(fn):
     return call
 
 
+def without_options(fn, name):
+    """Entry point ``name`` of a variant without the ``counts`` / ``visits``
+    arguments, called with the checkout's signature: drops the two, which
+    must be null."""
+    drop = OPTION_ARGS[name]
+
+    def call(*args):
+        if any(args[i].value is not None for i in drop):
+            raise ValueError(f"{name}: this variant takes no counts or "
+                             "visits")
+        return fn(*(a for i, a in enumerate(args) if i not in drop))
+    return call
+
+
 @contextlib.contextmanager
-def swapped_in(lib, entries, variant, padded=False):
+def swapped_in(lib, entries, variant, padded=False, no_options=False):
     """The wrappers' ``entries`` replaced by ``variant``'s (None: the
     checkout's own stay); with ``padded`` its K2 through
-    :func:`padded_global`."""
+    :func:`padded_global`, with ``no_options`` each entry point through
+    :func:`without_options`."""
     saved = {name: getattr(lib, name) for name in entries}
     if variant is not None:
         for name in entries:
             fn = getattr(variant, name)
-            fn.argtypes, fn.restype = saved[name].argtypes, ctypes.c_int
+            types = saved[name].argtypes
+            if no_options and name in OPTION_ARGS:
+                types = [t for i, t in enumerate(types)
+                         if i not in OPTION_ARGS[name]]
+                fn.argtypes, fn.restype = types, ctypes.c_int
+                fn = without_options(fn, name)
+            else:
+                fn.argtypes, fn.restype = types, ctypes.c_int
             setattr(lib, name, padded_global(fn)
                     if padded and name == "launch_any_flat" else fn)
     try:
@@ -246,14 +276,15 @@ def gather_passes(flat: bool):
     return passes, tabs
 
 
-def in_turns(lib, libs, entries, measure, padded=()):
+def in_turns(lib, libs, entries, measure, padded=(), no_options=()):
     """``measure()`` with each variant's kernels swapped in (the checkout's
     first), forwards through the variants and then backwards: a list of
     (name, value), forwards then backwards."""
     names = [None] + list(libs)
     cells = []
     for name in names + names[::-1]:
-        with swapped_in(lib, entries, libs.get(name), name in padded):
+        with swapped_in(lib, entries, libs.get(name), name in padded,
+                        name in no_options):
             cells.append((name or "tree", measure()))
     return cells
 
@@ -266,7 +297,7 @@ def _cells_text(cells, extra):
                      for i, (n, fwd) in enumerate(cells[:half]))
 
 
-def time_passes(lib, libs, card, entries, padded, flat):
+def time_passes(lib, libs, card, entries, padded, flat, no_options=()):
     import torch
 
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
@@ -283,7 +314,8 @@ def time_passes(lib, libs, card, entries, padded, flat):
             run = lambda: TC.trace_any(o, d, mt, m, *tabs)
         ref = run()
         cells = in_turns(lib, libs, entries, lambda: (
-            float((run() == ref).float().mean()), cuda_ms(run)), padded)
+            float((run() == ref).float().mean()), cuda_ms(run)), padded,
+            no_options)
         text = _cells_text(cells, lambda n, f, bk: (
             f"{f[1]:.3f} / {bk[1]:.3f} ms"
             + ("" if n == "tree" else f" (equal {f[0]:.6f})")))
@@ -291,7 +323,7 @@ def time_passes(lib, libs, card, entries, padded, flat):
             f"{card}")
 
 
-def time_rank(lib, libs, card, entries):
+def time_rank(lib, libs, card, entries, no_options=()):
     """K6 variants on dragon's sorted bounce passes: equality with the
     checkout's key and base, uncertified rays, K6 ms, and K6 + certificate
     + the checkout's seeded K3 against K3 alone."""
@@ -324,7 +356,8 @@ def time_rank(lib, libs, card, entries):
                     cuda_ms(walk),
                     cuda_ms(lambda: rank(o, d, m, keys, seed)))
 
-        cells = in_turns(lib, libs, entries, measure)
+        cells = in_turns(lib, libs, entries, measure,
+                         no_options=no_options)
         ms_alone = cuda_ms(lambda: TC.trace_closest(o, d, m, *tabs, seed))
         text = _cells_text(cells, lambda n, f, bk: (
             f"{f[2]:.3f} / {bk[2]:.3f} ms, with certificate and seeded K3 "
@@ -374,7 +407,8 @@ def time_broadphase(lib, libs, card, entries):
             f"on {card}")
 
 
-def time_renders(lib, libs, card, samples: int, entries, padded, family):
+def time_renders(lib, libs, card, samples: int, entries, padded, family,
+                 no_options=()):
     import torch
 
     from metal_raytracing_tpu_torch.renderer import Renderer
@@ -399,7 +433,8 @@ def time_renders(lib, libs, card, samples: int, entries, padded, family):
             return ((time.perf_counter() - t0) / samples * 1e3,
                     profile_renderer(r, 2))
 
-        for name, (ms, prof) in in_turns(lib, libs, entries, measure, padded):
+        for name, (ms, prof) in in_turns(lib, libs, entries, measure, padded,
+                                         no_options):
             top = ", ".join(f"{k[:24]} {v / prof.samples:.3f}"
                             for k, v, _ in prof.kernels[:3])
             log(f"  {label}, {name}: {ms:.3f} ms/sample, device "
@@ -425,6 +460,9 @@ def main() -> int:
                     help="also time the main path with each variant")
     ap.add_argument("--padded", action="append", default=[], metavar="NAME",
                     help="give variant NAME's K2 the padded global width")
+    ap.add_argument("--no-options", action="append", default=[],
+                    metavar="NAME", help="variant NAME's entry points take "
+                    "no counts / visits arguments")
     ap.add_argument("--samples", type=int, default=4)
     args = ap.parse_intermixed_args()
     if not torch.cuda.is_available():
@@ -443,22 +481,24 @@ def main() -> int:
         if "Compiling" in line or "registers" in line or "spill" in line:
             log(f"  ptxas tree: {line.strip()}")
     variants = dict(v.split("=", 1) for v in args.variants)
-    padded = set(args.padded)
-    if not padded <= set(variants):
-        ap.error(f"--padded names no variant: {sorted(padded - set(variants))}")
+    padded, no_options = set(args.padded), set(args.no_options)
+    for flag, names in (("--padded", padded), ("--no-options", no_options)):
+        if not names <= set(variants):
+            ap.error(f"{flag} names no variant: "
+                     f"{sorted(names - set(variants))}")
     libs = build_variants(variants, source)
     log("per pass, forwards / backwards:")
     if args.family == "rank":
-        time_rank(lib, libs, card, entries)
+        time_rank(lib, libs, card, entries, no_options)
     elif args.family == "broadphase":
         time_broadphase(lib, libs, card, entries)
     else:
         time_passes(lib, libs, card, entries, padded,
-                    args.family == "flat")
+                    args.family == "flat", no_options)
     if args.render:
         log("main path, forwards then backwards:")
         time_renders(lib, libs, card, args.samples, entries, padded,
-                     args.family)
+                     args.family, no_options)
     return 0
 
 

@@ -155,8 +155,7 @@ def test_cuda_tracer_on_cpu_device_raises():
 
 def test_unported_config_knobs_are_errors():
     for knob in ("sort_primary", "samples_per_dispatch", "live_widths",
-                 "export_rays", "bake_primary", "chunk_skip", "visit_pairs",
-                 "telemetry"):
+                 "bake_primary", "visit_pairs", "visit_pairs2"):
         with pytest.raises(TypeError):
             RenderConfig(**{knob: False})
     with pytest.raises(ValueError, match="tracer"):

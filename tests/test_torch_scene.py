@@ -131,12 +131,16 @@ def test_scene_data_from_reference_round_trips(scene):
 
 
 def test_unported_builders_and_features_raise():
+    """Every builder and the subdivision are ported; what still raises is
+    what the JAX package refuses too (tests/test_torch_builders.py holds
+    each builder against the JAX build)."""
     scene = tlib.get_scene("teapot", 16, 16)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        scene.build(builder="sah", device="cpu")
-    with pytest.raises(NotImplementedError, match="max_edge_frac"):
-        build_scene_data(scene.instances, scene.lights, scene.camera(),
-                         max_edge_frac=0.1, device="cpu")
+    with pytest.raises(ValueError, match="builder"):
+        scene.build(builder="octree", device="cpu")
+    data, spec = build_scene_data(scene.instances, scene.lights,
+                                  scene.camera(), max_edge_frac=0.1,
+                                  device="cpu")
+    assert spec.bvh.num_triangles > scene.triangle_count
     # a textured scene is refused subdivision, as in the JAX package
     uv = tlib.get_scene("uv_test", 16, 16)
     with pytest.raises(ValueError, match="textured"):

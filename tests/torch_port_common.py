@@ -1,6 +1,11 @@
 """Helpers shared by the port's tests (``tests/test_torch_*.py``): one JAX
 scene build carried across to the port, and the rays of every trace pass of
-one port sample."""
+one port sample.
+
+The port's test files newer than ``tests/test_sharding.py`` keep to at most
+its 9 collected items: ``pytest -n 6 --dist loadfile`` hands out files in
+order of their item count, and ``test_sharding.py``, the suite's longest
+file, must start as early as it did, or the suite's wall moves."""
 
 import numpy as np
 import pytest
@@ -78,6 +83,19 @@ def few_torch_threads():
     torch.set_num_threads(before)
 
 
+# Every builder of ``accel.build_cluster_bvh``, and the pre-split: label ->
+# its keywords.
+BUILDS = {
+    "sah": dict(builder="sah"),
+    "sah_free": dict(builder="sah_free"),
+    "sah_chunk": dict(builder="sah_chunk"),
+    "median": dict(builder="median"),
+    "morton": dict(builder="morton"),
+    "ploc": dict(builder="ploc"),
+    "presplit": dict(builder="sah_free", presplit=0.3),
+}
+
+
 # ids (occlusion flags) must agree on this share of live rays; every closest
 # id mismatch must be a near-tie: both winners' exact t within 2^-13
 # relative (the packed key chops t to 2^-14 relative, and two walks visit
@@ -99,6 +117,41 @@ def assert_near_ties(o, d, tri, ref_tri, live, planes) -> int:
             o[bad], d[bad], planes[:, torch.from_numpy(ref_tri[bad])].T)
         assert float(((ta - tb).abs() / tb.abs()).max()) <= NEAR_TIE_REL
     return int(bad.sum())
+
+
+_TRIS = {}
+
+
+def triangles(scene: str, size: int):
+    """(v0, e1, e2) of the port's flattened ``scene`` (its procedural
+    stand-ins)."""
+    from metal_raytracing_tpu_torch.io import procedural as tproc
+    from metal_raytracing_tpu_torch.scene import flatten_instances
+    from metal_raytracing_tpu_torch.scenes import library as tlib
+
+    if scene not in _TRIS:
+        mp = pytest.MonkeyPatch()
+        mp.setattr(tlib, "resolve_model", lambda n, prefer_file=True:
+                   tproc.make_model(n))
+        try:
+            inst = tlib.get_scene(scene, size, size).instances
+        finally:
+            mp.undo()
+        _TRIS[scene] = flatten_instances(inst)[:3]
+    return _TRIS[scene]
+
+
+def sample_ray_table(v0, m: int = 512, seed: int = 3) -> np.ndarray:
+    """A seeded (M, 8) ``[o d max_t live]`` ray table over the box of the
+    points ``v0``, as ``RenderConfig.export_rays`` exports."""
+    lo, hi = v0.min(axis=0), v0.max(axis=0)
+    rng = np.random.RandomState(seed)
+    o = rng.uniform(lo, hi, (m, 3)).astype(np.float32)
+    d = rng.normal(size=(m, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    maxt = np.where(rng.rand(m) < 0.5, np.inf, 2.0).astype(np.float32)
+    live = (rng.rand(m) < 0.9).astype(np.float32)
+    return np.concatenate([o, d, maxt[:, None], live[:, None]], axis=1)
 
 
 def seeded_rays(n: int, seed: int, data, live: float = 0.85):
