@@ -119,7 +119,28 @@ Phases, each of which raises (exit code != 0) on failure:
     ``profiling.trace`` holding the renderer's scope names; every dragon
     build, and ``sah_chunk`` / ``ploc`` with ``chunk_skip``, in turns (two
     rounds of 3 samples: ms/sample, device ms/sample, idle share,
-    launches).
+    launches);
+17. K3's baked-origin primary pass (``RenderConfig.bake_primary``) on
+    dragon 1024x1024: on the ``sah_chunk`` build (partly full clusters)
+    and the default ``sah_free`` build, the baked K3 against its walking
+    plain version (``closest_hier_ref(baked=True)``) on every ray of the
+    primary pass, bit for bit with the visits, with ``counts`` off and (on
+    ``sah_chunk``) on, and without options the same bits; against the
+    unbaked K3 on the same rays, ids equal on >= 99.9% and every mismatch a
+    near-tie or an edge hit (the baked barycentrics re-associate); the two
+    passes timed in turns beside the baked bound; the main path with
+    ``bake_primary=True`` (one baked launch a sample) and its image
+    against config A's (RMSE < 1e-3, < 0.1% of pixels beyond 0.05);
+18. ``parallel.ShardedRenderer`` on ``torch.distributed`` with several
+    ranks sharing cuda:0: two and four gloo ranks (NCCL refuses two ranks
+    on one card) in spp, tile and 2-D meshes, each image against the plain
+    ``Renderer``'s (RMSE < 1e-5), and NCCL at world size 1; ms a step and
+    aggregate samples/s of one process, the whole mesh and two of its ranks
+    in turns, and one image ``all_reduce`` alone;
+19. every sort layout and knob of the JAX renderer (M1b) on dragon
+    1024x1024 at ``compaction=True``: each image against config A's (RMSE
+    < 1e-6; ``sort_pack_f16``, which rounds to f16, at the golden gate),
+    with its ms/sample and profiled device ms/sample.
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
 tables once) over 3.35 TB/s, the H100 SXM's published HBM rate, and its
@@ -166,8 +187,12 @@ version on its ``plain_rays``, and a bound whose operations are counted on
 two samples of every 61st ray, scaled to all rays; K1-K4 and K6 with
 ``options_ms``, each option set's ms (``off``, ``visits``, and on the
 ``sah_chunk`` build also ``visits+counts``) on phase 16's sah_free and
-sah_chunk primary passes (K6: their sorted bounce 1)), and last the
-line
+sah_chunk primary passes (K6: their sorted bounce 1)); last the baked K3
+(``closest_hier_kernel baked``) with phase 17's main-path launches, its
+ms and the unbaked K3's in turns, ``plain_ms`` of the walking plain
+version (``plain_kind``), and the bound with the origin terms taken out
+(``SLAB_OPS_BAKED``, ``PLANE_OPS_BAKED``, no ray origins read); and last
+the line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits with an error and
 renders nothing (there is no CPU fallback).
 """
@@ -216,6 +241,12 @@ FP32_LANES_PER_SM = 128
 SLAB_OPS = 12 // 2 + 15  # slab(): 6 sub, 6 mul; 10 min/max, clamp, 4 cmp
 PLANE_OPS = 34 // 2 + 5  # plane_hit(): 34 mul/add/sub (3 in the Newton
 #                          step); 1 div, 4 compares
+# The baked-origin forms (K3's primary pass under bake_primary) drop the
+# origin terms: the slab's 6 subtractions, the plane test's n.o (5), its
+# n.v0 - n.o (1) and the hit point (6), and take the direction dots in
+# place of the point dots (U.d, V.d: the same 10 and 2 more multiplies).
+SLAB_OPS_BAKED = 6 // 2 + 15  # 6 mul; 10 min/max, clamp, 4 cmp
+PLANE_OPS_BAKED = 24 // 2 + 5  # 24 mul/add/sub; 1 div, 4 compares
 # The same for the exact BVH walk's tests (ops/intersect.py):
 BVH_SLAB_OPS = 12 // 2 + 14  # ray_aabb: 6 sub, 6 mul; 10 min/max, 4 compares
 MT_OPS = 45 // 2 + 8  # moller_trumbore: 45 mul/add/sub; div, abs, 6 compares
@@ -326,9 +357,11 @@ def _live_chunks(mask, width: int):
 
 
 def trace_work(o, d, mask, data, spec, hier, t_final=None, max_t=None,
-               occ=None):
+               occ=None, baked=False):
     """(bytes, operations) a closest (``t_final``: each ray's final chopped
-    hit t) or shadow (``max_t``, ``occ``) pass needs; see the docstring."""
+    hit t) or shadow (``max_t``, ``occ``) pass needs; see the docstring.
+    ``baked``: the closest pass's baked-origin form, its tests without the
+    origin terms and its rays without their origins."""
     from metal_raytracing_tpu_torch.ops.broadphase_cuda import slab_entry
 
     bvh = spec.bvh
@@ -339,8 +372,8 @@ def trace_work(o, d, mask, data, spec, hier, t_final=None, max_t=None,
     table = data.tri_planes[:, :bvh.num_clusters * bvh.cluster_size]
     nbytes = table.numel() * 4 + boxes.numel() * 4 + (sup.numel() * 4 if hier
                                                       else 0)
-    if t_final is not None:
-        nbytes += n * (12 + 12 + 1 + 4) + n * (4 + 4)  # rays + seed, t + tri
+    if t_final is not None:  # rays + seed, t + tri
+        nbytes += n * ((0 if baked else 12) + 12 + 1 + 4) + n * (4 + 4)
     else:
         nbytes += n * (12 + 12 + 4 + 1) + n * 1  # rays + max_t, flag
     slabs = planes = 0
@@ -362,6 +395,8 @@ def trace_work(o, d, mask, data, spec, hier, t_final=None, max_t=None,
     if occ is not None:  # one triangle for each occluded ray, and the
         planes += int((mask & occ).sum())  # global set for the others
         planes += int((mask & ~occ).sum()) * bvh.num_global
+    if baked:
+        return nbytes, slabs * SLAB_OPS_BAKED + planes * PLANE_OPS_BAKED
     return nbytes, slabs * SLAB_OPS + planes * PLANE_OPS
 
 
@@ -385,17 +420,19 @@ def record_passes(renderer):
 
     from metal_raytracing_tpu_torch import renderer as R
 
-    closest, any_hit = R.make_tracers(renderer.data, renderer.spec, "cuda")
-    calls = {"closest": [], "any": []}
+    closest, any_hit = R.make_tracers(renderer.data, renderer.spec, "cuda",
+                                      baked=renderer.baked)
+    calls = {"closest": [], "any": [], "baked": []}
 
     rank = R.make_closest_rank(renderer.data, renderer.spec, renderer.cfg,
                                "cuda", closest)
     calls["rank"] = []
 
-    def rec_closest(o, d, m, seed, seed_base=None):
+    def rec_closest(o, d, m, seed, seed_base=None, baked=False):
         calls["closest"].append((o.contiguous(), d.clone(), m.clone(),
                                  None if seed is None else seed.clone()))
-        return closest(o, d, m, seed, seed_base)
+        calls["baked"].append(baked)  # this pass ran on the baked tables
+        return closest(o, d, m, seed, seed_base, baked=baked)
 
     def rec_rank(o, d, m, rank_keys, seed):
         calls["rank"].append((o.contiguous(), d.contiguous(), m.clone(),
@@ -408,7 +445,8 @@ def record_passes(renderer):
 
     calls["image"], _ = R.render_sample(
         renderer.data, renderer.spec, renderer.cfg, renderer.offsets, 0,
-        tracers=(rec_closest, rec_any, rank and rec_rank))
+        tracers=(rec_closest, rec_any, rank and rec_rank),
+        baked_tables=renderer.baked)
     torch.cuda.synchronize()
     return calls
 
@@ -1099,6 +1137,7 @@ def launch_counts():
             "closest_flat": TC.trace_closest.launches,
             "any_flat": TC.trace_any.launches,
             "closest_hier": TC.trace_closest.launches_hier,
+            "closest_hier_baked": TC.trace_closest.launches_baked,
             "any_hier": TC.trace_any.launches_hier,
             "broadphase": broadphase_keys.launches,
             "broadphase_clusters": broadphase_keys.launches_clusters,
@@ -2075,6 +2114,368 @@ def builders(card):
     return wide, option_ms, k6_ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: K3's baked-origin primary pass (bake_primary)
+# ---------------------------------------------------------------------------
+
+BAKE_SAMPLES = 4  # samples of the baked and the unbaked image
+
+
+def _bake_checks(label, renderer):
+    """The baked K3 on the recorded primary pass of ``renderer`` (built with
+    ``bake_primary=True``): bit-equal, visits included, to the walking plain
+    version on every ray with ``counts`` off and, on a build that marks
+    ``partial_clusters``, on; the same bits without visits; against the
+    unbaked K3 on the same rays, near-ties only.  Returns (hit, the pass's
+    args, the unbaked and baked tables, the walking plain ms)."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    data, spec = renderer.data, renderer.spec
+    bvh = spec.bvh
+    calls = record_passes(renderer)
+    assert calls["baked"][0] and not any(calls["baked"][1:]), calls["baked"]
+    o, d, m, seed = calls["closest"][0]
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, bvh)
+    btabs = (*renderer.baked, bvh)
+    cset = (None, data.clu_counts) if bvh.partial_clusters else (None,)
+    ref0 = TC.trace_closest(o, d, m, *btabs, seed, baked_origin=True)
+    walk_ms = None
+    for cnt in cset:
+        hit, vis = TC.trace_closest(o, d, m, *btabs, seed, baked_origin=True,
+                                    count_visits=True, counts=cnt)
+        ms, (t_ref, tri_ref, v_ref) = cuda_call(lambda: TC.closest_walk_ref(
+            o, d, m, *btabs, seed, counts=TC.active_counts(bvh, cnt),
+            baked=True))
+        walk_ms = walk_ms if walk_ms is not None else ms
+        same = (_same_bits(hit.t, t_ref) and _same_bits(hit.tri, tri_ref)
+                and _same_bits(vis, v_ref))
+        opts = _same_bits(hit.t, ref0.t) and _same_bits(hit.tri, ref0.tri)
+        tag = "visits" if cnt is None else "visits+counts"
+        log(f"  {label} baked K3 ({tag}) vs the walking plain version, every "
+            f"ray of {int(m.sum())} live: bit-equal {same} (visits a live "
+            f"ray {float(vis[m].float().mean()):.3f}, max {int(vis.max())}); "
+            f"the same bits without options {opts}; walking plain "
+            f"{ms:.3f} ms")
+        assert same and opts, (label, tag)
+    unbaked = TC.trace_closest(o, d, m, *tabs, seed)
+    baked_gate(label, o, d, m, ref0, unbaked, data)
+    return ref0, (o, d, m, seed), tabs, btabs, walk_ms
+
+
+def baked_gate(label, o, d, m, hit, ref, data):
+    """The baked K3's ids (``hit``) against the unbaked K3's (``ref``) on
+    the live rays ``m``: equal on >= 99.9% of them, t within 2^-13
+    relative where they agree, and every mismatch a near-tie (both winners'
+    exact t within 2^-13 relative) or an edge hit: the baked test takes u
+    and v as t (U.d) + uw', the unbaked one as U.(o + t d) + uw, so the two
+    round apart by about an ulp, and a hit that lies on an edge may be in
+    under one and out under the other.  The nearer winner of such a ray
+    lies within EDGE_REL of an edge of its triangle (the plane rows'
+    barycentrics, over |o| + t)."""
+    import torch
+
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    bad = m & (hit.tri != ref.tri)
+    both = bad & (hit.tri >= 0) & (ref.tri >= 0)
+    rel = torch.zeros_like(hit.t)
+    planes = data.tri_planes
+    if bool(both.any()):
+        ta, _, _ = TC.recompute_tuv(o[both], d[both],
+                                    planes[:, hit.tri[both].long()].T)
+        tb, _, _ = TC.recompute_tuv(o[both], d[both],
+                                    planes[:, ref.tri[both].long()].T)
+        rel[both] = (ta - tb).abs() / tb.abs()
+    tie = both & (rel <= NEAR_TIE_REL)
+    edge = bad & ~tie
+    worst_edge = 0.0
+    if bool(edge.any()):
+        nearer = torch.where(hit.t <= ref.t, hit.tri, ref.tri)[edge]
+        plane_margin = margins(o[edge], d[edge], data, nearer.clamp(min=0))[1]
+        worst_edge = float(plane_margin.abs().max())
+        for k, i in enumerate(edge.nonzero()[:8, 0].tolist()):
+            log(f"    ray {i}: baked t {float(hit.t[i]):.9g} slot "
+                f"{int(hit.tri[i])} / unbaked t {float(ref.t[i]):.9g} slot "
+                f"{int(ref.tri[i])}; the nearer's edge distance "
+                f"{float(plane_margin[k]):.3e}")
+        assert bool((nearer >= 0).all()) and worst_edge <= EDGE_REL, (
+            f"{label}: {int(edge.sum())} mismatches, neither near-ties nor "
+            f"edge hits (worst edge distance {worst_edge:.3e})")
+    agree = m & (hit.tri == ref.tri) & (hit.tri >= 0)
+    t_rel = float(((hit.t - ref.t).abs() / ref.t.abs())[agree].max())
+    n_live = max(int(m.sum()), 1)
+    share = 1.0 - int(bad.sum()) / n_live
+    log(f"  {label} baked vs unbaked K3: ids equal {share:.6f}: "
+        f"{int(tie.sum())} near-ties (worst exact-t rel "
+        f"{float(rel[tie].max()) if bool(tie.any()) else 0.0:.3e}), "
+        f"{int(edge.sum())} edge hits (nearer winner's edge distance over "
+        f"|o| + t at most {worst_edge:.3e}, gate {EDGE_REL:.3e}); chopped t "
+        f"rel max {t_rel:.3e} on equal ids (gate {NEAR_TIE_REL:.3e})")
+    assert share >= MIN_MATCH and t_rel <= NEAR_TIE_REL, (label, share,
+                                                           t_rel)
+
+
+def bake_phase(card):
+    """Phase 17: dragon 1024x1024 with ``bake_primary=True``.  Returns the
+    kernels-line row of the baked K3."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    w, h = DRAGON
+    chunk = Renderer(get_scene("dragon", w, h),
+                     RenderConfig(width=w, height=h, bake_primary=True,
+                                  bvh_builder="sah_chunk"), device="cuda")
+    assert chunk.spec.bvh.partial_clusters
+    _bake_checks("sah_chunk", chunk)
+    del chunk
+    r = Renderer(get_scene("dragon", w, h),
+                 RenderConfig(width=w, height=h, bake_primary=True),
+                 device="cuda")
+    hit, (o, d, m, seed), tabs, btabs, walk_ms = _bake_checks("sah_free", r)
+    # the primary pass, unbaked and baked, in turns
+    plain = lambda: TC.trace_closest(o, d, m, *tabs, seed)
+    baked = lambda: TC.trace_closest(o, d, m, *btabs, seed,
+                                     baked_origin=True)
+    turns = [cuda_ms(f, 10) for f in (plain, baked, baked, plain)]
+    bnd = bound(*trace_work(o, d, m, r.data, r.spec, True, t_final=hit.t,
+                            baked=True))
+    bnd_u = bound(*trace_work(o, d, m, r.data, r.spec, True, t_final=hit.t))
+    log(f"  primary pass in turns (unbaked, baked, baked, unbaked): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; baked bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}), unbaked {bnd_u[0]:.4f} ms; on {card}")
+    # the main path, then the same build unbaked (config A), same samples
+    _, samples, counts = main_path(r, card, "dragon bake_primary=True",
+                                   DRAGON)
+    log(f"  launches over {samples} samples: {counts}")
+    assert counts["closest_hier_baked"] == samples, counts
+    assert counts["closest_hier"] == 2 * samples, counts
+    img = r.image
+    a = with_config(r, bake_primary=False)
+    a.step(samples + 2)  # as many samples as the baked image holds
+    gate_image("bake_primary vs A", img, a.image, card)
+    return {"name": "closest_hier_kernel baked", "route": "cuda",
+            "source": CSRC + "trace_hier.cu",
+            "replaces": f"{PALLAS}:1139", "form": "baked=True",
+            "launches": counts["closest_hier_baked"], "max_abs_err": 0.0,
+            "ms": (turns[1] + turns[2]) / 2, "plain_ms": walk_ms,
+            "plain_kind": "walking", "unbaked_ms": (turns[0] + turns[3]) / 2,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": LIBRARY}
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: spp / tile sharding on torch.distributed, several ranks a card
+# ---------------------------------------------------------------------------
+
+SHARD_SAMPLES = 4  # samples of each sharded image (whole steps of 1, 2, 4)
+SHARD_TIMED = 3  # steps of each timed turn
+
+
+SHARD_DEVICE = "cuda:0"
+SHARD_DEADLINE = 240  # seconds a spawn of phase 18 may take
+
+
+def _shard_rank(rank, world, init, out, backend):
+    """One rank of phase 18 on cuda:0 (see :func:`sharding_phase`)."""
+    import torch
+    import torch.distributed as dist
+
+    from metal_raytracing_tpu_torch.parallel import ShardedRenderer, make_mesh
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    device = SHARD_DEVICE
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            **({"device_id": torch.device(device)}
+                               if backend == "nccl" else {}))
+    w, h = DRAGON
+    scene = get_scene("dragon", w, h)
+    cfg = RenderConfig(width=w, height=h)
+    results = {}
+    meshes = ((("spp", 1, world), ("tile", world, 1))
+              + ((("tile", 2, 2),) if world == 4 else ()))
+    for mode, tile, spp in meshes:
+        sr = ShardedRenderer(scene, cfg, make_mesh(world, tile=tile, spp=spp),
+                             mode=mode, device=device)
+        img = sr.render(SHARD_SAMPLES)
+        if rank == 0:
+            np.save(f"{out}/{mode}_{tile}x{spp}.npy", img)
+    # ms per step, in turns: rank 0 alone (the others wait), then the whole
+    # mesh in spp mode, then a mesh of two, and back
+    timed = {}
+    solo = Renderer(scene, cfg, device=device) if rank == 0 else None
+    spp_all = ShardedRenderer(scene, cfg, make_mesh(world, tile=1, spp=world),
+                              mode="spp", device=device)
+    pair = make_mesh(2, tile=1, spp=2) if world > 2 else None
+    spp_two = (ShardedRenderer(scene, cfg, pair, mode="spp", device=device)
+               if pair is not None and pair.coord is not None else None)
+    turns = ["solo", "all"] + (["pair", "pair"] if pair else []) + [
+        "all", "solo"]
+    who = {"solo": solo, "all": spp_all, "pair": spp_two}
+    for tag in ["warm"] + turns:
+        for r in (solo, spp_all, spp_two) if tag == "warm" else (who[tag],):
+            dist.barrier()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            if r is not None:
+                r.step(1 if tag == "warm" else SHARD_TIMED)
+                torch.cuda.synchronize(device)
+            dist.barrier()
+            wall = time.perf_counter() - t0
+        if tag != "warm":
+            timed.setdefault(tag, []).append(wall)
+    # the spp step's collective alone: one all_reduce of an image
+    img = torch.zeros((h, w, 3), device=device)
+    walls = []
+    for _ in range(4):
+        dist.barrier()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dist.all_reduce(img, group=spp_all.mesh.spp_group)
+        torch.cuda.synchronize(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        results["all_reduce of one image, ms"] = walls[1:]
+        samples = {"solo": 1, "all": world, "pair": 2}
+        label = {"solo": "one process", "all": f"{world} ranks, spp",
+                 "pair": "2 of the ranks, spp"}
+        for tag, walls in timed.items():
+            results[label[tag]] = {
+                "ms_per_step": [x / SHARD_TIMED * 1e3 for x in walls],
+                "samples_per_s": [samples[tag] * SHARD_TIMED / x
+                                  for x in walls]}
+        with open(f"{out}/timing.json", "w") as f:
+            json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharding_phase(card):
+    """Phase 18: ``parallel.ShardedRenderer`` with two and four gloo ranks
+    on cuda:0 (NCCL refuses two ranks on one card), spp, tile and 2-D
+    meshes, each image against the plain ``Renderer``'s; NCCL at world size
+    1; ms a step and aggregate samples/s against one process, in turns.
+    The ranks share one card: the aggregate shows how far several host
+    processes fill it, not a scaling across cards."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from metal_raytracing_tpu_torch.io.image import rmse
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    w, h = DRAGON
+    ref = Renderer(get_scene("dragon", w, h), RenderConfig(width=w, height=h),
+                   device=SHARD_DEVICE).render(SHARD_SAMPLES)
+    os.makedirs("build", exist_ok=True)
+    for backend, world in (("gloo", 2), ("gloo", 4), ("nccl", 1)):
+        out = tempfile.mkdtemp(prefix=f"phase18_{backend}{world}_",
+                               dir=os.path.join(os.getcwd(), "build"))
+        t0 = time.perf_counter()
+        ranks = mp.start_processes(_shard_rank, nprocs=world, join=False,
+                                   start_method="spawn",
+                                   args=(world, f"file://{out}/rendezvous",
+                                         out, backend))
+        while not ranks.join(timeout=5):
+            if time.perf_counter() - t0 > SHARD_DEADLINE:
+                for proc in ranks.processes:
+                    proc.kill()
+                raise RuntimeError(f"phase 18: {backend} x {world} did not "
+                                   f"end in {SHARD_DEADLINE} s")
+        log(f"  {backend}, {world} rank(s) on {SHARD_DEVICE}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name in sorted(os.listdir(out)):
+            if name.endswith(".npy"):
+                img = np.load(os.path.join(out, name))
+                err = rmse(img, ref)
+                log(f"    {name[:-4]} ({SHARD_SAMPLES} samples) vs the plain "
+                    f"Renderer: RMSE {err:.3e} (gate < 1e-5)")
+                assert np.isfinite(img).all() and err < 1e-5, (name, err)
+        with open(os.path.join(out, "timing.json")) as f:
+            timing = json.load(f)
+        def fmt(xs, digits=3):
+            return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+        reduce_ms = timing.pop("all_reduce of one image, ms")
+        log(f"    all_reduce of one {w}x{h}x3 float32 image over {world} "
+            f"rank(s): {fmt(reduce_ms)} ms")
+        for tag, t in timing.items():
+            log(f"    {tag}: ms a step {fmt(t['ms_per_step'])}; samples/s "
+                f"{fmt(t['samples_per_s'], 2)}; on {card}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the sort layouts and knobs (M1b) on dragon, compaction=True
+# ---------------------------------------------------------------------------
+
+# (label, config keywords on top of compaction=True)
+SORT_LAYOUTS = (
+    ("cluster2", {}),
+    ("cluster3", dict(sort_key="cluster3")),
+    ("cluster2_nodir shadow_key2", dict(sort_key="cluster2_nodir",
+                                        shadow_key2=True)),
+    ("cluster1_dir9 shadow_hit_key", dict(sort_key="cluster1_dir9",
+                                          shadow_hit_key=True)),
+    ("cluster1_hit", dict(sort_key="cluster1_hit")),
+    ("dir6", dict(sort_key="dir6")),
+    ("dir9 sort_primary", dict(sort_key="dir9", sort_primary=True)),
+    ("dir6_cluster", dict(sort_key="dir6_cluster")),
+    ("hybrid shadow_sort_primary", dict(sort_key="hybrid",
+                                        shadow_sort_primary=True)),
+    ("dir_major sort_last_bounce=False", dict(sort_key="dir_major",
+                                              sort_last_bounce=False)),
+    ("cluster2 bounce_hit_key_from=2", dict(bounce_hit_key_from=2)),
+    ("cluster2 sort_pack_f16", dict(sort_pack_f16=True)),
+)
+SORT_SAMPLES = 2
+
+
+def sort_layouts_phase(card):
+    """Phase 19: each layout and knob's image against config A's after
+    ``SORT_SAMPLES`` samples (the same image: RMSE < 1e-6; the golden gate
+    for ``sort_pack_f16``, which rounds to f16), and its ms a sample and
+    device ms a sample (``torch.profiler``, 1 sample)."""
+    from metal_raytracing_tpu_torch.io.image import rmse
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
+
+    import torch
+
+    w, h = DRAGON
+    a = Renderer(get_scene("dragon", w, h), RenderConfig(width=w, height=h),
+                 device="cuda")
+    a.step(SORT_SAMPLES)
+    ref = a.image
+    for label, kw in SORT_LAYOUTS:
+        r = with_config(a, compaction=True, **kw)
+        r.step(1)  # warm-up, not in the image
+        img_r = with_config(a, compaction=True, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_r.step(SORT_SAMPLES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SORT_SAMPLES * 1e3
+        img = img_r.image
+        prof = profile_renderer(r, 1)
+        err = rmse(img, ref)
+        gate = IMAGE_RMSE if kw.get("sort_pack_f16") else SAME_IMAGE_RMSE
+        log(f"  {label}: RMSE vs A {err:.3e} (gate < {gate}), "
+            f"{ms:.3f} ms/sample, device {prof.device_ms_per_sample:.3f} "
+            f"ms/sample in {prof.launches // prof.samples} kernels; on {card}")
+        assert np.isfinite(img).all() and err < gate, (label, err)
+        if kw.get("sort_pack_f16"):
+            gate_image(label, img, ref, card)
+
+
 def main() -> int:
     import torch
 
@@ -2342,6 +2743,28 @@ def main() -> int:
     wide, option_ms, k6_ms = builders(card)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
+    # ---- phase 17: K3's baked-origin primary pass
+    t17 = time.perf_counter()
+    log("phase 17: dragon bake_primary=True: the baked K3 vs its walking "
+        "plain version and the unbaked K3, timed in turns; the image vs A's")
+    baked_row = bake_phase(card)
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- phase 18: sharding on torch.distributed, ranks sharing the card
+    t18 = time.perf_counter()
+    log("phase 18: ShardedRenderer, 2 and 4 gloo ranks and 1 NCCL rank on "
+        "cuda:0 (the ranks share one card)")
+    sharding_phase(card)
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+    # ---- phase 19: the sort layouts and knobs
+    t19 = time.perf_counter()
+    log(f"phase 19: every sort layout and knob on dragon compaction=True, "
+        f"{SORT_SAMPLES} samples each vs A")
+    sort_layouts_phase(card)
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s")
+
     kernels = []
     modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries
     for key, name, src, line, first in (
@@ -2403,6 +2826,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "plain_rays": r["plain_rays"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": LIBRARY})
+    kernels.append(baked_row)  # phase 17
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

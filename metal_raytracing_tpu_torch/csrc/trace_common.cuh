@@ -8,6 +8,12 @@
 // one Newton step, barycentrics u = U.p + uw, v = V.p + vw at p = o + t d,
 // hit when u >= 0, v >= 0, u + v <= 1 and t > 1e-6.  A degenerate padding
 // triangle has den = 0, so t is NaN and every comparison is false.
+//
+// The baked-origin forms (template flag kBaked; trace_pallas._slab_cols and
+// _mt_block with no origin, for rays that all leave the origin that
+// trace_cuda.bake_origin moved into the tables) drop every origin term: the
+// slab entry is lo * inv, t = n.v0' * rcp, and u = t * (U.d) + uw',
+// v = t * (V.d) + vw', in that association.
 
 #pragma once
 
@@ -40,12 +46,14 @@ __device__ __forceinline__ float safe_inv(float v) {
   return 1.0f / s;
 }
 
+// Ray r of the (N, 3) tables; kBaked: the origin is 0 and `o` is not read.
+template <bool kBaked = false>
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
                                         const float* __restrict__ d, int r) {
   Ray ray;
-  ray.ox = o[3 * r + 0];
-  ray.oy = o[3 * r + 1];
-  ray.oz = o[3 * r + 2];
+  ray.ox = kBaked ? 0.0f : o[3 * r + 0];
+  ray.oy = kBaked ? 0.0f : o[3 * r + 1];
+  ray.oz = kBaked ? 0.0f : o[3 * r + 2];
   ray.dx = d[3 * r + 0];
   ray.dy = d[3 * r + 1];
   ray.dz = d[3 * r + 2];
@@ -57,16 +65,18 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
 
 // Slab test of one box [lo(3), hi(3)] (trace_pallas._slab_cols); an
 // inverted padding box fails the hi >= lo term.  Writes max(t_entry, 0).
+// kBaked: the box is shifted by -origin and the ray starts at 0.
+template <bool kBaked = false>
 __device__ __forceinline__ bool slab(const float* box, const Ray& ray,
                                      float t_max, float* tn_out) {
   float lox = box[0], loy = box[1], loz = box[2];
   float hix = box[3], hiy = box[4], hiz = box[5];
-  float t0x = (lox - ray.ox) * ray.ix;
-  float t1x = (hix - ray.ox) * ray.ix;
-  float t0y = (loy - ray.oy) * ray.iy;
-  float t1y = (hiy - ray.oy) * ray.iy;
-  float t0z = (loz - ray.oz) * ray.iz;
-  float t1z = (hiz - ray.oz) * ray.iz;
+  float t0x = (kBaked ? lox : lox - ray.ox) * ray.ix;
+  float t1x = (kBaked ? hix : hix - ray.ox) * ray.ix;
+  float t0y = (kBaked ? loy : loy - ray.oy) * ray.iy;
+  float t1y = (kBaked ? hiy : hiy - ray.oy) * ray.iy;
+  float t0z = (kBaked ? loz : loz - ray.oz) * ray.iz;
+  float t1z = (kBaked ? hiz : hiz - ray.oz) * ray.iz;
   float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   *tn_out = fmaxf(tn, 0.0f);
@@ -88,6 +98,21 @@ __device__ __forceinline__ bool plane_hit(const float (&p)[12], float ox,
   float pz = oz + t * dz;
   float u = p[4] * px + p[5] * py + p[6] * pz + p[7];
   float v = p[8] * px + p[9] * py + p[10] * pz + p[11];
+  *t_out = t;
+  return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 1e-6f);
+}
+
+// plane_hit in the baked-origin form: the plane values of bake_origin
+// (n.v0 - n.o, uw + U.o, vw + V.o) against a ray from 0 along d.
+__device__ __forceinline__ bool plane_hit_baked(const float (&p)[12],
+                                                float dx, float dy, float dz,
+                                                float* t_out) {
+  float den = p[0] * dx + p[1] * dy + p[2] * dz;
+  float rcp = 1.0f / den;
+  rcp = rcp * (2.0f - den * rcp);
+  float t = p[3] * rcp;
+  float u = t * (p[4] * dx + p[5] * dy + p[6] * dz) + p[7];
+  float v = t * (p[8] * dx + p[9] * dy + p[10] * dz) + p[11];
   *t_out = t;
   return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > 1e-6f);
 }
@@ -120,7 +145,7 @@ __device__ __forceinline__ void load_shared(const float* __restrict__ src,
 // `visited`, is slab-hit within t_max, and has its entry strictly below
 // `bound`; -1 when there is none.  Ties go to the lower index, as the TPU
 // kernels' argmin.
-template <int W>
+template <bool kBaked = false, int W>
 __device__ __forceinline__ int pick_box(const float* boxes, int count,
                                         const Ray& ray, float t_max,
                                         float bound,
@@ -135,7 +160,7 @@ __device__ __forceinline__ int pick_box(const float* boxes, int count,
       if (k >= count) break;
       if ((vw >> b) & 1u) continue;
       float tn;
-      if (slab(boxes + 6 * k, ray, t_max, &tn) && tn < best_tn) {
+      if (slab<kBaked>(boxes + 6 * k, ray, t_max, &tn) && tn < best_tn) {
         best_tn = tn;
         best = k;
       }

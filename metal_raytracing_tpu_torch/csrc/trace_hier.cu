@@ -90,8 +90,19 @@
 // test at its last real slot, which skips the 64-slot steps of a partly
 // full cluster that hold only padding (zero planes that never hit: the same
 // result); `visits` (i32 per ray) receives the clusters each ray
-// dense-tested, where the TPU kernel counts per 128-ray tile.  Baked
-// origins and pair visits are not here.
+// dense-tested, where the TPU kernel counts per 128-ray tile.  Pair visits
+// are not here.
+//
+// The baked-origin closest walk (the TPU kernel's baked=True,
+// trace_pallas.py:1139-1150, the primary pass of RenderConfig.bake_primary):
+// every ray leaves the camera, whose position trace_cuda.bake_origin has
+// moved into the tables (boxes shifted by -origin, the plane constants
+// absorbing n.o, U.o and V.o).  The kernel reads only the directions, and
+// every slab and plane test drops its origin terms (trace_common.cuh): of a
+// plane test's 34 multiplies, adds and subtracts 9 fewer, of a slab test's
+// 12 the 6 subtractions.  It is closest_hier_kernel's second template flag,
+// so the walk, the seed, the options and the order state are the same code
+// as the unbaked pass's, whose instantiation does not change.
 //
 // Numerics and the packed key: see trace_common.cuh.  The rays in shared
 // memory, the shared picks (coop_pick, coop_pick_after) and the shared leaf
@@ -124,6 +135,8 @@ __device__ __forceinline__ void reset(CVis& v) {
 
 // The lane's own pick among the super's `count` cluster boxes: the nearest
 // after its last pick whose entry lies below the bound; records it.
+// kBaked (here and below): the baked-origin tests.
+template <bool kBaked = false>
 __device__ __forceinline__ int pick_cluster(const float* boxes, int count,
                                             const Ray& ray, float t_max,
                                             float bound, CVis& v) {
@@ -131,7 +144,7 @@ __device__ __forceinline__ int pick_cluster(const float* boxes, int count,
   float best_tn = bound;
   for (int k = 0; k < count; ++k) {
     float tn;
-    if (slab(boxes + 6 * k, ray, t_max, &tn)) {
+    if (slab<kBaked>(boxes + 6 * k, ray, t_max, &tn)) {
       int bits = __float_as_int(tn + 0.0f);
       if ((bits > v.bits || (bits == v.bits && k > v.idx)) && tn < best_tn) {
         best_tn = tn;
@@ -149,6 +162,7 @@ __device__ __forceinline__ int pick_cluster(const float* boxes, int count,
 
 // The warp's pick for lane m among its super's cluster boxes; lane m
 // records it.  Called by all 32 lanes.
+template <bool kBaked = false>
 __device__ __forceinline__ int coop_pick_cluster(const float* boxes,
                                                  int count,
                                                  const float4* rays, int m,
@@ -157,8 +171,8 @@ __device__ __forceinline__ int coop_pick_cluster(const float* boxes,
   int a_bits = __shfl_sync(kFull, v.bits, m);
   int a_idx = __shfl_sync(kFull, v.idx, m);
   int bits;
-  int pick = coop_pick_after(boxes, count, rays, m, tm, bd, a_bits, a_idx,
-                             lane, &bits);
+  int pick = coop_pick_after<kBaked>(boxes, count, rays, m, tm, bd, a_bits,
+                                     a_idx, lane, &bits);
   if (lane == m && pick >= 0) {
     v.bits = bits;
     v.idx = pick;
@@ -174,6 +188,7 @@ __device__ __forceinline__ int coop_pick_cluster(const float* boxes,
 // one exit and no return inside: every lane must reach the same vote
 // instruction, and a loop with several exits let the compiler send lanes to
 // different copies of it (seen on the card as missed occluders).
+template <bool kBaked = false>
 __device__ __forceinline__ int next_cluster(const float* s_sup,
                                             const float* clu, int n_sup,
                                             int s_per, const Ray& ray,
@@ -183,7 +198,7 @@ __device__ __forceinline__ int next_cluster(const float* s_sup,
   int req = -1;
   while (walking && req < 0) {
     if (s < 0) {
-      s = pick_box(s_sup, n_sup, ray, t_max, bound, svis);
+      s = pick_box<kBaked>(s_sup, n_sup, ray, t_max, bound, svis);
       if (s < 0) {
         walking = false;
       } else {
@@ -192,8 +207,8 @@ __device__ __forceinline__ int next_cluster(const float* s_sup,
       }
     }
     if (s >= 0) {
-      int k = pick_cluster(clu + 6 * s * s_per, s_per, ray, t_max, bound,
-                           cvis);
+      int k = pick_cluster<kBaked>(clu + 6 * s * s_per, s_per, ray, t_max,
+                                   bound, cvis);
       if (k >= 0) {
         req = s * s_per + k;
       } else {
@@ -209,6 +224,7 @@ __device__ __forceinline__ int next_cluster(const float* s_sup,
 // walk state comes by shuffle, its pick by coop_pick, and only lane m
 // updates its state.  Ends when no walking lane is without a request.
 // Called by all 32 lanes.
+template <bool kBaked = false>
 __device__ __forceinline__ int next_cluster_coop(
     const float* s_sup, const float* clu, int n_sup, int s_per,
     const float4* rays, float my_tmax, float my_bound, int& s,
@@ -225,7 +241,7 @@ __device__ __forceinline__ int next_cluster_coop(
       unsigned v[4];
 #pragma unroll
       for (int w = 0; w < 4; ++w) v[w] = __shfl_sync(kFull, svis[w], m);
-      int pick = coop_pick(s_sup, n_sup, rays, m, tm, bd, v, lane);
+      int pick = coop_pick<kBaked>(s_sup, n_sup, rays, m, tm, bd, v, lane);
       if (lane == m) {
         if (pick < 0) {
           walking = false;
@@ -236,8 +252,8 @@ __device__ __forceinline__ int next_cluster_coop(
         }
       }
     } else {
-      int pick = coop_pick_cluster(clu + 6 * sm * s_per, s_per, rays, m, tm,
-                                   bd, cvis, lane);
+      int pick = coop_pick_cluster<kBaked>(clu + 6 * sm * s_per, s_per, rays,
+                                           m, tm, bd, cvis, lane);
       if (lane == m) {
         if (pick >= 0) {
           req = sm * s_per + pick;
@@ -273,7 +289,9 @@ __device__ __forceinline__ const float* stage_boxes(float4* s_mem,
 // a cluster's key replaces the best only when strictly smaller.  Writes the
 // best key's chopped t and its slot (-1 on a miss).  `counts` and `visits`
 // may be null; kWide: the cluster boxes are read from device memory.
-template <bool kWide>
+// kBaked: the baked-origin walk over bake_origin's tables; `o` is not read
+// (null).
+template <bool kWide, bool kBaked>
 __global__ void __launch_bounds__(kThreads)
 closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const unsigned char* __restrict__ mask,
@@ -299,7 +317,7 @@ closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int base = inside && seed_base ? seed_base[r] : g_base;
   bool walking = inside && mask[r];
   Ray ray = {};
-  if (walking) ray = load_ray(o, d, r);
+  if (walking) ray = load_ray<kBaked>(o, d, r);
   store_ray(s_ray, ray, kBigT);
   unsigned svis[4] = {0u, 0u, 0u, 0u};
   CVis cvis;
@@ -310,11 +328,12 @@ closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
     // every walking lane advances to its next cluster, then the warp serves
     // the requests group by group, lowest requesting lane first
     int req = __popc(__ballot_sync(kFull, walking)) <= kCoopMax
-                  ? next_cluster_coop(s_sup, cl, n_sup, s_per, rays, kBigT,
-                                      key_to_t(key), s, svis, cvis, walking,
-                                      lane)
-                  : next_cluster(s_sup, cl, n_sup, s_per, ray, kBigT,
-                                 key_to_t(key), s, svis, cvis, walking);
+                  ? next_cluster_coop<kBaked>(s_sup, cl, n_sup, s_per, rays,
+                                              kBigT, key_to_t(key), s, svis,
+                                              cvis, walking, lane)
+                  : next_cluster<kBaked>(s_sup, cl, n_sup, s_per, ray, kBigT,
+                                         key_to_t(key), s, svis, cvis,
+                                         walking);
     unsigned pending = __ballot_sync(kFull, req >= 0);
     if (!pending) break;
     nvis += req >= 0;
@@ -324,7 +343,8 @@ closest_hier_kernel(const float* __restrict__ o, const float* __restrict__ d,
       pending &= ~group;
       int cbase = c * c_size;
       int count = counts ? __ldg(counts + c) : c_size;
-      int vkey = serve_closest(tri, T, cbase, count, group, rays, lane);
+      int vkey =
+          serve_closest<kBaked>(tri, T, cbase, count, group, rays, lane);
       if (req == c && vkey < key) {
         key = vkey;
         base = cbase;
@@ -415,7 +435,7 @@ bool bad_layout(int n_sup, int s_per) {
          s_per > kMaxPerSuper;
 }
 
-template <bool kWide>
+template <bool kWide, bool kBaked>
 int closest_hier(const void* o, const void* d, const void* mask,
                  const void* seed, const void* seed_base, const void* sup,
                  const void* clu, const void* tri, int n, int n_sup,
@@ -423,10 +443,10 @@ int closest_hier(const void* o, const void* d, const void* mask,
                  const void* counts, void* t_out, void* tri_out,
                  void* visits, void* stream) {
   size_t smem = shared_bytes(n_sup, s_per, kWide);
-  cudaError_t err = allow_shared(closest_hier_kernel<kWide>, smem);
+  cudaError_t err = allow_shared(closest_hier_kernel<kWide, kBaked>, smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = (n + kThreads - 1) / kThreads;
-  closest_hier_kernel<kWide>
+  closest_hier_kernel<kWide, kBaked>
       <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
           (const float*)o, (const float*)d, (const unsigned char*)mask,
           (const int*)seed, (const int*)seed_base, (const float*)sup,
@@ -474,10 +494,27 @@ int launch_closest_hier(const void* o, const void* d, const void* mask,
                         int g_base, const void* counts, void* t_out,
                         void* tri_out, void* visits, void* stream) {
   if (bad_layout(n_sup, s_per)) return (int)cudaErrorInvalidValue;
-  auto launch = s_per > kMaxSharedPerSuper ? closest_hier<true>
-                                           : closest_hier<false>;
+  auto launch = s_per > kMaxSharedPerSuper ? closest_hier<true, false>
+                                           : closest_hier<false, false>;
   return launch(o, d, mask, seed, seed_base, sup, clu, tri, n, n_sup, s_per,
                 c_size, T, g_base, counts, t_out, tri_out, visits, stream);
+}
+
+// The baked-origin closest walk: `d`, and the tables of bake_origin for the
+// rays' shared origin; the rest as launch_closest_hier.
+int launch_closest_hier_baked(const void* d, const void* mask,
+                              const void* seed, const void* seed_base,
+                              const void* sup, const void* clu,
+                              const void* tri, int n, int n_sup, int s_per,
+                              int c_size, int T, int g_base,
+                              const void* counts, void* t_out, void* tri_out,
+                              void* visits, void* stream) {
+  if (bad_layout(n_sup, s_per)) return (int)cudaErrorInvalidValue;
+  auto launch = s_per > kMaxSharedPerSuper ? closest_hier<true, true>
+                                           : closest_hier<false, true>;
+  return launch(nullptr, d, mask, seed, seed_base, sup, clu, tri, n, n_sup,
+                s_per, c_size, T, g_base, counts, t_out, tri_out, visits,
+                stream);
 }
 
 int launch_any_hier(const void* o, const void* d, const void* max_t,

@@ -31,7 +31,9 @@ __device__ __forceinline__ void store_ray(float4* s_ray, const Ray& ray,
 // memory): lane l slab-tests boxes l, l + 32, ... against `vis`, lane m's
 // visited mask.  Entries are >= 0, so their float bits order like their
 // values; + 0.0f turns a -0 into +0 so that equal entries have equal bits.
-// Returns the same index to all lanes.  Called by all 32 lanes.
+// Returns the same index to all lanes.  Called by all 32 lanes.  kBaked: the
+// baked-origin slab test (trace_common.cuh).
+template <bool kBaked = false>
 __device__ __forceinline__ int coop_pick(const float* boxes, int count,
                                          const float4* rays, int m,
                                          float t_max, float bound,
@@ -45,7 +47,7 @@ __device__ __forceinline__ int coop_pick(const float* boxes, int count,
     if (32 * w < count) {
       float tn = 0.0f;
       bool ok = k < count && !((vis[w] >> lane) & 1u) &&
-                slab(boxes + 6 * k, ray, t_max, &tn) && tn < bound;
+                slab<kBaked>(boxes + 6 * k, ray, t_max, &tn) && tn < bound;
       int bits = ok ? __float_as_int(tn + 0.0f) : kInfBits;
       if (bits < best_bits) {
         best_bits = bits;
@@ -63,6 +65,7 @@ __device__ __forceinline__ int coop_pick(const float* boxes, int count,
 // (entry bits, index) comes strictly after (a_bits, a_idx) may be picked.
 // Lane l tests boxes l, l + 32, ...  Returns the same index to all lanes,
 // and the picked entry's bits in *bits_out.  Called by all 32 lanes.
+template <bool kBaked = false>
 __device__ __forceinline__ int coop_pick_after(const float* boxes, int count,
                                                const float4* rays, int m,
                                                float t_max, float bound,
@@ -73,7 +76,7 @@ __device__ __forceinline__ int coop_pick_after(const float* boxes, int count,
   int best_bits = kInfBits, best_idx = 0x7fffffff;
   for (int k = lane; k < count; k += 32) {
     float tn = 0.0f;
-    bool ok = slab(boxes + 6 * k, ray, t_max, &tn) && tn < bound;
+    bool ok = slab<kBaked>(boxes + 6 * k, ray, t_max, &tn) && tn < bound;
     int bits = __float_as_int(tn + 0.0f);
     ok = ok && (bits > a_bits || (bits == a_bits && k > a_idx));
     if (ok && bits < best_bits) {
@@ -92,7 +95,9 @@ __device__ __forceinline__ int coop_pick_after(const float* boxes, int count,
 // group, its ray's minimum packed key (bits(t) & ~0x1FF) | j over the
 // slots, init_key() when none is hit.  A step is 64 slots, two a lane: the
 // two plane tests of a ray are independent, which hides their latency in a
-// warp that walks alone.  Called by all 32 lanes.
+// warp that walks alone.  Called by all 32 lanes.  kBaked: the baked-origin
+// plane test, which reads only each ray's direction.
+template <bool kBaked = false>
 __device__ __forceinline__ int serve_closest(const float* __restrict__ tri,
                                              int T, int base, int count,
                                              unsigned group,
@@ -107,8 +112,10 @@ __device__ __forceinline__ int serve_closest(const float* __restrict__ tri,
       int m = __ffs(g) - 1;
       float4 a = rays[3 * m], b = rays[3 * m + 1];
       float ta, tb;
-      bool ha = plane_hit(p, a.x, a.y, a.z, a.w, b.x, b.y, &ta);
-      bool hb = plane_hit(q, a.x, a.y, a.z, a.w, b.x, b.y, &tb);
+      bool ha = kBaked ? plane_hit_baked(p, a.w, b.x, b.y, &ta)
+                       : plane_hit(p, a.x, a.y, a.z, a.w, b.x, b.y, &ta);
+      bool hb = kBaked ? plane_hit_baked(q, a.w, b.x, b.y, &tb)
+                       : plane_hit(q, a.x, a.y, a.z, a.w, b.x, b.y, &tb);
       int ka = ha ? ((__float_as_int(ta) & ~kIdxMask) | ja) : init_key();
       int kb = hb ? ((__float_as_int(tb) & ~kIdxMask) | jb) : init_key();
       int k = __reduce_min_sync(kFull, min(ka, kb));

@@ -118,6 +118,8 @@ def load_library() -> ctypes.CDLL:
         lib.launch_any_flat.restype = i
         lib.launch_closest_hier.argtypes = [p] * 8 + [i] * 6 + [p] * 5
         lib.launch_closest_hier.restype = i
+        lib.launch_closest_hier_baked.argtypes = [p] * 7 + [i] * 6 + [p] * 5
+        lib.launch_closest_hier_baked.restype = i
         lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 4
         lib.launch_any_hier.restype = i
         lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]

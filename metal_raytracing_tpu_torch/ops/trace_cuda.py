@@ -41,6 +41,15 @@ hierarchical kernels take supers of up to ``MAX_PER_SUPER`` clusters
 a super); above ``SHARED_PER_SUPER`` they read the cluster boxes from device
 memory in place of shared memory (``csrc/trace_hier.cu``).
 
+**The baked origin** (the TPU kernel's ``baked=True``, for
+``RenderConfig.bake_primary``): rays that all leave one origin (the camera's,
+on the primary pass) run against the tables of :func:`bake_origin`, which
+moves that origin into the boxes and the plane constants, and
+:func:`trace_closest` with ``baked_origin=True`` launches the hierarchical
+closest kernel's baked form (``launch_closest_hier_baked``), which reads only
+the directions and drops every origin term of its tests; its plain versions
+take ``baked=True``.  Its launches are ``trace_closest.launches_baked``.
+
 **Outputs follow the TPU kernels' contract.**  A closest hit is the minimum
 over packed keys ``(bits(t) & ~IDX_MASK) | in-cluster index``: positive
 float bits order like their values, so the minimum is the nearest hit with t
@@ -67,7 +76,7 @@ __all__ = ["pack_triangle_planes", "pack_scene_planes", "super_layout",
            "trace_closest", "trace_any", "closest_flat_ref", "any_flat_ref",
            "closest_hier_ref", "any_hier_ref", "closest_flat_walk_ref",
            "any_flat_walk_ref", "closest_walk_ref", "any_walk_ref",
-           "active_counts",
+           "active_counts", "bake_origin",
            "global_seed_keys", "global_any_hit", "recompute_tuv",
            "reset_launch_counts", "IDX_BITS", "IDX_MASK"]
 
@@ -138,6 +147,29 @@ def pack_triangle_planes(v0: torch.Tensor, e1: torch.Tensor,
     uw = -_dot(u3, v0)[:, None]
     vw = -_dot(v3, v0)[:, None]
     return torch.cat([n, d_const, u3, uw, v3, vw], dim=1).T.contiguous()
+
+
+def bake_origin(sup, clu, tri, origin):
+    """The plane tables for rays that all leave ``origin`` (3,)
+    (``trace_pallas.bake_origin``): boxes move by ``-origin``, and the
+    triangle constants absorb the origin's dots, ``n.v0' = n.v0 - n.o``,
+    ``uw' = uw + U.o``, ``vw' = vw + V.o``, so that ``t = n.v0' / n.d`` and
+    ``u = t (U.d) + uw'`` for a ray from 0 along d.  Each dot rounds as XLA
+    contracts the jitted JAX function on the CPU, ``fma(a_z, o_z, fma(a_x,
+    o_x, a_y * o_y))``, so the two packages' tables agree bit for bit.
+    Returns ``(sup', clu', tri')``."""
+    origin = origin.to(torch.float32)
+    shift = torch.cat([origin, origin])
+    ox, oy, oz = origin[0], origin[1], origin[2]
+
+    def odot(r0: int) -> torch.Tensor:
+        return fma(tri[r0 + 2], oz, fma(tri[r0], ox, tri[r0 + 1] * oy))
+
+    tri_b = tri.clone()
+    tri_b[3] = tri[3] - odot(0)
+    tri_b[7] = tri[7] + odot(4)
+    tri_b[11] = tri[11] + odot(8)
+    return sup - shift, clu - shift, tri_b
 
 
 def _super_size(nc: int) -> int:
@@ -250,25 +282,32 @@ def recompute_tuv(o, d, rows, eps: float = 1e-20):
 # ---------------------------------------------------------------------------
 
 
-def _plane_hits(o, d, rows):
+def _plane_hits(o, d, rows, baked: bool = False):
     """(n, C) hit distance and hit mask of rays (n, 3) against plane rows
     (12, C) shared by all rays, or (12, n, C) gathered per ray, in the
     kernels' op order: ``rcp = 1/den`` refined by one Newton step,
     ``t = (n.v0 - n.o) * rcp``, barycentrics at ``p = o + t d``
-    (``trace_pallas._mt_block``)."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    (``trace_pallas._mt_block``).  ``baked``: rows of :func:`bake_origin`
+    and rays from 0 (``o`` is not read), ``t = n.v0' * rcp``, ``u = t (U.d)
+    + uw'``, ``v = t (V.d) + vw'``."""
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     nx, ny, nz, dc, ux, uy, uz, uw, vx, vy, vz, vw = (
         r if r.dim() == 2 else r[None, :] for r in rows)
     den = nx * dx + ny * dy + nz * dz
     rcp = 1.0 / den
     rcp = rcp * (2.0 - den * rcp)
-    t = (dc - (nx * ox + ny * oy + nz * oz)) * rcp
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
-    u = ux * px + uy * py + uz * pz + uw
-    v = vx * px + vy * py + vz * pz + vw
+    if baked:
+        t = dc * rcp
+        u = t * (ux * dx + uy * dy + uz * dz) + uw
+        v = t * (vx * dx + vy * dy + vz * dz) + vw
+    else:
+        ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+        t = (dc - (nx * ox + ny * oy + nz * oz)) * rcp
+        px = ox + t * dx
+        py = oy + t * dy
+        pz = oz + t * dz
+        u = ux * px + uy * py + uz * pz + uw
+        v = vx * px + vy * py + vz * pz + vw
     hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-6)
     return t, hit
 
@@ -282,7 +321,7 @@ def _ray_chunks(n: int, width: int, device):
 
 
 def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None,
-                     seed_base=None):
+                     seed_base=None, baked: bool = False):
     """Plain version of ``closest_flat_kernel`` and ``closest_hier_kernel``:
     both compute the minimum packed key over every clustered triangle from
     the seed, which this takes by brute force with the kernels' packed key,
@@ -295,7 +334,8 @@ def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None,
     (through supers, for the hierarchical one), so a kernel and this can
     pick different winners only among keys that tie after the 512-ulp chop,
     where the walk may skip a cluster whose entry is not below the running
-    best."""
+    best.  ``baked``: ``tri`` from :func:`bake_origin` and the rays from its
+    origin (the kernel's baked-origin form; ``o`` is not read)."""
     n = o.shape[0]
     c, nc = spec.cluster_size, spec.num_clusters
     dev = o.device
@@ -310,7 +350,7 @@ def closest_flat_ref(o, d, mask, tri, spec: BVHSpec, seed_key=None,
     live = mask.nonzero()[:, 0]  # a dead ray keeps its seed
     for s, e in _ray_chunks(live.shape[0], nc * c, dev):
         r = live[s:e]
-        t, hit = _plane_hits(o[r], d[r], rows)
+        t, hit = _plane_hits(o[r], d[r], rows, baked)
         key = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
         key = torch.where(hit, key, torch.full_like(key, _INIT_KEY))
         kmin, kidx = key.view(e - s, nc, c).amin(dim=2).min(dim=1)
@@ -394,12 +434,14 @@ def _next_requests(o, d, t_max, bound, sup, clu, cur, svis, cvis):
     return req
 
 
-def _cluster_hits(o, d, tri, cbase, c: int, n_real=None):
+def _cluster_hits(o, d, tri, cbase, c: int, n_real=None, baked=False):
     """(t, hit) (n, c) of each ray against the ``c`` slots of its own
     cluster, from slot ``cbase`` (n,) on; with ``n_real`` (n,) only the
-    first ``n_real`` slots of each (the ``counts`` option)."""
+    first ``n_real`` slots of each (the ``counts`` option); ``baked`` as
+    :func:`_plane_hits`."""
     lane = torch.arange(c, device=o.device)
-    t, hit = _plane_hits(o, d, tri[:, cbase[:, None].long() + lane[None, :]])
+    t, hit = _plane_hits(o, d, tri[:, cbase[:, None].long() + lane[None, :]],
+                         baked)
     if n_real is not None:
         hit = hit & (lane[None, :] < n_real[:, None])
     return t, hit
@@ -425,10 +467,13 @@ def _note_round(rounds, n, rays, req) -> None:
 
 
 def _walk_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key,
-                  seed_base, rounds, counts=None):
+                  seed_base, rounds, counts=None, baked=False):
     """The closest walk of :func:`closest_hier_ref` (``sup`` the real
     supers, ``clu`` (NS, S, 6)) or :func:`closest_flat_walk_ref` (``sup``
-    None, ``clu`` (NCP, 6)); ``counts`` (NCP,) as the kernels take it."""
+    None, ``clu`` (NCP, 6)); ``counts`` (NCP,) as the kernels take it;
+    ``baked``: the tables of :func:`bake_origin`, the rays from 0."""
+    if baked:  # lo - 0 == lo: the slab test of the kernel's baked form
+        o = torch.zeros_like(d)
     n, c, dev = o.shape[0], spec.cluster_size, o.device
     key = (torch.full((n,), _INIT_KEY, dtype=torch.int32, device=dev)
            if seed_key is None else seed_key.to(torch.int32).clone())
@@ -452,7 +497,7 @@ def _walk_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key,
             cbase = (req[s:s + step] * c).to(torch.int32)
             t, hit = _cluster_hits(o[r], d[r], tri, cbase, c,
                                    None if counts is None
-                                   else counts[req[s:s + step]])
+                                   else counts[req[s:s + step]], baked)
             vkey = (t.view(torch.int32) & ~IDX_MASK) | lane[None, :]
             vkey = torch.where(hit, vkey, _INIT_KEY).amin(dim=1)
             take = vkey < key[r]
@@ -505,7 +550,7 @@ def _walk_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, g_slots: int,
 
 
 def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                     seed_base=None, rounds=None, counts=None):
+                     seed_base=None, rounds=None, counts=None, baked=False):
     """Plain version of ``closest_hier_kernel`` that walks as the kernel
     does, every ray at once: in each round every walking ray takes the
     nearest unvisited super and cluster whose slab entry lies strictly below
@@ -522,10 +567,12 @@ def closest_hier_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
     ``counts`` (NCP,) i32: test only each cluster's first ``counts`` slots
     (the kernels' option; the result is the same).  Returns ``(t_chop (N,)
     f32, tri (N,) i32, visits (N,) i32)``, ``visits`` the clusters each ray
-    dense-tested.  The CPU path of :func:`trace_closest` with
-    ``count_visits``; without, it stays :func:`closest_flat_ref`."""
+    dense-tested.  ``baked``: the tables of :func:`bake_origin` and rays
+    from its origin, as the kernel's baked form walks them (``o`` is not
+    read).  The CPU path of :func:`trace_closest` with ``count_visits``;
+    without, it stays :func:`closest_flat_ref`."""
     return _walk_closest(o, d, mask, sup[:clu.shape[0]], clu, tri, spec,
-                         seed_key, seed_base, rounds, counts)
+                         seed_key, seed_base, rounds, counts, baked)
 
 
 def any_hier_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec,
@@ -568,17 +615,20 @@ def any_flat_walk_ref(o, d, max_t, mask, clu, tri, spec: BVHSpec,
 
 
 def closest_walk_ref(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                     seed_base=None, flat=None, rounds=None, counts=None):
+                     seed_base=None, flat=None, rounds=None, counts=None,
+                     baked=False):
     """The walking plain version of the closest kernel the route picks
     (``flat`` as :func:`trace_closest`): :func:`closest_flat_walk_ref` or
-    :func:`closest_hier_ref`.  Returns ``(t_chop, tri, visits)``."""
+    :func:`closest_hier_ref` (``baked`` as there).  Returns ``(t_chop, tri,
+    visits)``."""
     if _use_flat(spec, flat):
-        if seed_base is not None:
-            raise ValueError("seed_base requires the hierarchical walk")
+        if seed_base is not None or baked:
+            raise ValueError("seed_base and baked require the hierarchical "
+                             "walk")
         return closest_flat_walk_ref(o, d, mask, clu, tri, spec, seed_key,
                                      rounds, counts)
     return closest_hier_ref(o, d, mask, sup, clu, tri, spec, seed_key,
-                            seed_base, rounds, counts)
+                            seed_base, rounds, counts, baked)
 
 
 def any_walk_ref(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
@@ -676,7 +726,8 @@ def _stream(device) -> ctypes.c_void_p:
 
 
 def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
-                  flat=None, seed_base=None, count_visits=False, counts=None):
+                  flat=None, seed_base=None, count_visits=False, counts=None,
+                  baked_origin=False):
     """Closest hit of each ray: ``closest_flat_kernel`` or
     ``closest_hier_kernel`` on a CUDA device (``flat`` as
     ``trace_pallas.trace_closest``: None picks by cluster count),
@@ -692,13 +743,28 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
     kernels' options (module docstring).  Returns a :class:`Hit` whose
     ``t`` is the chopped distance of the packed key (``u``/``v`` are zeros:
     the renderer recomputes the exact t from the shade row), with
-    ``count_visits`` ``(Hit, visits (N,) int32)``."""
+    ``count_visits`` ``(Hit, visits (N,) int32)``.
+
+    ``baked_origin=True``: ``sup``, ``clu`` and ``tri`` are the tables of
+    :func:`bake_origin` for the origin every ray leaves from, and the
+    hierarchical kernel's baked form traces them (a flat scene raises, as in
+    the reference).  ``o`` is then the zero origin of the shifted frame:
+    the kernel does not read it, and the seed computed here when none is
+    given uses 0.  The hit distances are the same in both frames."""
     if seed_base is not None:
         if seed_key is None:
             raise ValueError("seed_base needs the seed_key it belongs to")
         if _use_flat(spec, flat):
             raise ValueError("seed_base requires the hierarchical kernel "
                              "(pass flat=False)")
+    if baked_origin:
+        if _use_flat(spec, flat):
+            raise ValueError("baked_origin requires the hierarchical kernel "
+                             "(pass flat=False or gate on _use_flat)")
+        if seed_key is None and spec.num_global:
+            # from the rays' origin in the shifted frame
+            seed_key = global_seed_keys(torch.zeros_like(d), d, mask, tri,
+                                        spec)
     if seed_key is None and spec.num_global:
         seed_key = global_seed_keys(o, d, mask, tri, spec)
     n = o.shape[0]
@@ -712,10 +778,10 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
         if count_visits:
             t, tri_id, visits = closest_walk_ref(
                 o, d, mask, sup, clu, tri, spec, seed_key, seed_base, flat,
-                counts=counts)
+                counts=counts, baked=baked_origin)
         else:
             t, tri_id = closest_flat_ref(o, d, mask, tri, spec, seed_key,
-                                         seed_base)
+                                         seed_base, baked_origin)
     elif o.device.type == "cuda":
         from ._build import load_library
 
@@ -730,7 +796,16 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
         tri_id = torch.empty((n,), dtype=torch.int32, device=o.device)
         if count_visits:
             visits = torch.zeros((n,), dtype=torch.int32, device=o.device)
-        if n and hier:
+        if n and baked_origin:
+            err = lib.launch_closest_hier_baked(
+                _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sb_c), _ptr(sup_c),
+                _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0], clu_c.shape[1],
+                spec.cluster_size, tri_c.shape[1], spec.global_base,
+                _ptr(counts), _ptr(t), _ptr(tri_id), _ptr(visits),
+                _stream(o.device))
+            _raise_on(err, lib, "closest_hier_kernel (baked origin)")
+            trace_closest.launches_baked += 1
+        elif n and hier:
             err = lib.launch_closest_hier(
                 _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sb_c),
                 _ptr(sup_c), _ptr(clu_c), _ptr(tri_c), n, clu_c.shape[0],
@@ -757,6 +832,7 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
 
 trace_closest.launches = 0
 trace_closest.launches_hier = 0
+trace_closest.launches_baked = 0
 
 
 def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
@@ -827,6 +903,7 @@ def reset_launch_counts() -> None:
     from .rank_cuda import trace_closest_rank
 
     trace_closest.launches = trace_closest.launches_hier = 0
+    trace_closest.launches_baked = 0
     trace_any.launches = trace_any.launches_hier = 0
     broadphase_keys.launches = broadphase_keys.launches_clusters = 0
     trace_closest_rank.launches = 0

@@ -9,15 +9,19 @@ fold into a progressive average.
 
 With ``compaction=False`` (the port's default) rays keep their pixel (tile)
 order through every bounce.  With ``compaction=True`` the rays of bounces
->= 1 are sorted by a cluster key from the exact broad phase, the shadow rays
-are re-sorted by their own, rays that the broad phase proves can only hit
-the global set skip the closest kernel, and with ``rank_trace=2`` the sorted
-bounce passes take the rank-directed walk (``ops.rank_cuda``) with the
-hierarchical kernel as its fallback.  All of that is a permutation of the
-rays plus exact shortcuts: the image is unchanged.  The reference's
+>= 1 (and of bounce 0 under ``sort_primary``) are sorted by the key of
+``sort_key`` (a cluster key from the exact broad phase by default), the
+shadow rays are re-sorted by their own, rays that the broad phase proves can
+only hit the global set skip the closest kernel, and with ``rank_trace=2``
+the sorted bounce passes take the rank-directed walk (``ops.rank_cuda``)
+with the hierarchical kernel as its fallback.  All of that is a permutation
+of the rays plus exact shortcuts: the image is unchanged (``sort_pack_f16``
+aside, which rounds what rides the sort to f16).  The reference's
 multi-operand ``lax.sort`` is one ``torch.sort`` of the key and a gather of
 the per-ray state by its permutation.  Nothing on the path waits for the
-device.
+device.  With ``bake_primary`` the primary pass runs against tables that
+hold the camera's position (``trace_cuda.bake_origin``), through the
+hierarchical closest kernel's baked-origin form.
 
 The shading extensions of the JAX package (environment map, emission,
 textures, a specular Phong lobe, refraction; ``RenderConfig``) are plain
@@ -58,7 +62,7 @@ from .utils.profiling import named_scope
 
 __all__ = ["render_sample", "render_rays", "pixel_coords", "accumulate",
            "Renderer", "make_pixel_offsets", "make_tracers",
-           "make_closest_rank", "resolve_tracer"]
+           "make_closest_rank", "resolve_tracer", "bake_tables"]
 
 # Sort keys stay below this; dead rays take it and sort last.
 _DEAD_KEY = 1 << 30
@@ -141,11 +145,32 @@ def resolve_tracer(cfg: RenderConfig, device) -> str:
     return cfg.tracer
 
 
+def _bakes(spec: SceneSpec, cfg: RenderConfig, tracer: str) -> bool:
+    """Does the primary pass run on baked tables?  Under
+    ``cfg.bake_primary``, but not for the exact tracers nor on flat scenes,
+    as in the reference."""
+    return (cfg.bake_primary and tracer not in EXACT_TRACERS
+            and not trace_cuda._use_flat(spec.bvh))
+
+
+def bake_tables(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
+                tracer: str):
+    """The plane tables of ``cfg.bake_primary``'s primary pass, the
+    scene's with the camera's position moved into them
+    (``trace_cuda.bake_origin``), or None where the bake is off
+    (:func:`_bakes`)."""
+    if not _bakes(spec, cfg, tracer):
+        return None
+    return trace_cuda.bake_origin(data.sup_planes, data.clu_planes,
+                                  data.tri_planes, data.camera.position)
+
+
 def make_tracers(data: SceneData, spec: SceneSpec, tracer: str,
-                 block: int = 128, count_visits: bool = False, counts=None):
-    """(closest(o, d, mask, seed, seed_base=None) -> Hit, any_hit(o, d,
-    max_t, mask) -> bool): over the scene's packed planes, the kernel
-    wrappers for ``tracer="cuda"`` and their plain versions for
+                 block: int = 128, count_visits: bool = False, counts=None,
+                 baked=None):
+    """(closest(o, d, mask, seed, seed_base=None, baked=False) -> Hit,
+    any_hit(o, d, max_t, mask) -> bool): over the scene's packed planes,
+    the kernel wrappers for ``tracer="cuda"`` and their plain versions for
     ``"torch"``; over its geometry and node boxes, the exact tracers of
     ``ops.trace`` for ``"bvh"`` (packets of ``block`` rays on the CPU) and
     ``"bruteforce"``, which take no seed.
@@ -153,51 +178,58 @@ def make_tracers(data: SceneData, spec: SceneSpec, tracer: str,
     For the cluster tracers, ``counts`` (``SceneData.clu_counts``) turns
     on the kernels' chunk skip, and ``count_visits`` makes each return
     ``(result, visits)``, the clusters each ray dense-tested (the plain
-    versions that walk, for ``"torch"``); the exact tracers ignore both."""
+    versions that walk, for ``"torch"``); the exact tracers ignore both.
+    ``baked`` holds the tables of :func:`bake_tables`: ``closest(...,
+    baked=True)`` traces rays that leave the camera against them, through
+    the hierarchical kernel's baked-origin form or its plain versions."""
     if tracer in EXACT_TRACERS:
         g, lo, hi, bvh = data.geometry, data.node_lo, data.node_hi, spec.bvh
 
         if tracer == "bvh":
-            def closest(o, d, m, seed=None, seed_base=None):
+            def closest(o, d, m, seed=None, seed_base=None, baked=False):
                 return trace.trace_closest(o, d, m, g, lo, hi, bvh, block)
 
             def any_hit(o, d, mt, m):
                 return trace.trace_any(o, d, mt, m, g, lo, hi, bvh, block)
         else:
-            def closest(o, d, m, seed=None, seed_base=None):
+            def closest(o, d, m, seed=None, seed_base=None, baked=False):
                 return trace.trace_closest_bruteforce(o, d, m, g)
 
             def any_hit(o, d, mt, m):
                 return trace.trace_any_bruteforce(o, d, mt, m, g)
-    elif tracer == "cuda":
-        tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
-
-        def closest(o, d, m, seed, seed_base=None):
-            return trace_cuda.trace_closest(o, d, m, *tabs, seed,
+        return closest, any_hit
+    tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
+    btabs = None if baked is None else (*baked, spec.bvh)
+    if tracer == "cuda":
+        def closest(o, d, m, seed, seed_base=None, baked=False):
+            return trace_cuda.trace_closest(o, d, m,
+                                            *(btabs if baked else tabs), seed,
                                             seed_base=seed_base,
                                             count_visits=count_visits,
-                                            counts=counts)
+                                            counts=counts,
+                                            baked_origin=baked)
 
         def any_hit(o, d, mt, m):
             return trace_cuda.trace_any(o, d, mt, m, *tabs,
                                         count_visits=count_visits,
                                         counts=counts)
     elif count_visits:
-        tabs = (data.sup_planes, data.clu_planes, data.tri_planes, spec.bvh)
         counts = trace_cuda.active_counts(spec.bvh, counts)
 
-        def closest(o, d, m, seed, seed_base=None):
+        def closest(o, d, m, seed, seed_base=None, baked=False):
             t, tri, visits = trace_cuda.closest_walk_ref(
-                o, d, m, *tabs, seed, seed_base, counts=counts)
+                o, d, m, *(btabs if baked else tabs), seed, seed_base,
+                counts=counts, baked=baked)
             z = torch.zeros_like(t)
             return Hit(t=t, u=z, v=z, tri=tri), visits
 
         def any_hit(o, d, mt, m):
             return trace_cuda.any_walk_ref(o, d, mt, m, *tabs, counts=counts)
     else:
-        def closest(o, d, m, seed, seed_base=None):
-            t, tri = trace_cuda.closest_flat_ref(o, d, m, data.tri_planes,
-                                                 spec.bvh, seed, seed_base)
+        def closest(o, d, m, seed, seed_base=None, baked=False):
+            t, tri = trace_cuda.closest_flat_ref(
+                o, d, m, (btabs if baked else tabs)[2], spec.bvh, seed,
+                seed_base, baked)
             z = torch.zeros_like(t)
             return Hit(t=t, u=z, v=z, tri=tri)
 
@@ -316,6 +348,116 @@ def _morton_512(points: torch.Tensor, data: SceneData) -> torch.Tensor:
             | _expand_bits_9(q[:, 2]))
 
 
+def _octant(d: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 direction octant, x lowest."""
+    return ((d[:, 0] > 0).to(torch.int32) + 2 * (d[:, 1] > 0).to(torch.int32)
+            + 4 * (d[:, 2] > 0).to(torch.int32))
+
+
+def _dir_cone(d: torch.Tensor, bits: int) -> torch.Tensor:
+    """(N,) int32 direction cone: each axis of the unit direction quantized
+    to ``bits`` bits, x highest."""
+    lvl = 1 << (bits - 1)
+    q = torch.clamp(((d + 1.0) * lvl).to(torch.int32), 0, 2 * lvl - 1)
+    return (q[:, 0] << (2 * bits)) | (q[:, 1] << bits) | q[:, 2]
+
+
+def _pack2f16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two float32 arrays rounded to f16, their bits packed into one int32
+    word, ``a`` high (``RenderConfig.sort_pack_f16``)."""
+    def bits(x):
+        return x.half().view(torch.int16).to(torch.int32) & 0xFFFF
+
+    return (bits(a) << 16) | bits(b)
+
+
+def _unpack2f16(w: torch.Tensor):
+    """Inverse of :func:`_pack2f16` (exact on the stored f16 values)."""
+    def value(x):
+        return x.to(torch.int16).view(torch.float16).float()
+
+    return value(w >> 16), value(w & 0xFFFF)
+
+
+def cluster_key_bits(sort_key: str, nc_tot: int, use_hit: bool = False):
+    """The bit budget of a cluster layout's 30-bit key (the reference's
+    ``renderer.py:563-575``): ``(cbits, c2bits, c3bits, db, mbits)``, the
+    bits of the nearest, second and third nearest cluster ids, the
+    direction bits an axis, and the Morton bits left.  ``use_hit``: the
+    hit-cluster key, which has one id only."""
+    want2 = not use_hit and sort_key in ("cluster2", "cluster2_nodir",
+                                         "cluster3")
+    want3 = not use_hit and sort_key == "cluster3"
+    cbits = max(1, nc_tot.bit_length())
+    db = {"cluster1_dir9": 3, "cluster2_nodir": 0}.get(sort_key, 2)
+    avail = 30 - cbits - 3 * db
+    c2bits = min(cbits, max(0, avail)) if want2 else 0
+    avail -= c2bits
+    c3bits = min(cbits, max(0, avail)) if want3 else 0
+    return cbits, c2bits, c3bits, db, max(0, avail - c3bits)
+
+
+def cluster_key(bits, cid, cid2, cid3, d, m) -> torch.Tensor:
+    """A cluster layout's bounce key (``renderer.py:684-706``): the
+    nearest cluster's id on top, the second and third below it, the
+    direction cone, then the top Morton bits, by ``bits`` of
+    :func:`cluster_key_bits`."""
+    cbits, c2bits, c3bits, db, mbits = bits
+    shift = 30 - cbits
+    key = cid << shift
+    for extra, nb in ((cid2, c2bits), (cid3, c3bits)):
+        if nb:
+            shift -= nb
+            key = key | ((extra & ((1 << nb) - 1)) << shift)
+    if db:
+        shift -= 3 * db
+        key = key | (_dir_cone(d, db) << shift)
+    return key | (m >> max(0, 27 - mbits))
+
+
+def direction_key(sort_key: str, d, m, prev_tri,
+                  cluster_size: int) -> torch.Tensor:
+    """The bounce key of the layouts without cluster ids
+    (``renderer.py:728-759``): ``"hybrid"``, ``"dir6"``, ``"dir9"``,
+    ``"dir6_cluster"`` (keyed also on ``prev_tri``, the hit the ray
+    bounced off), else ``"dir_major"``; ``m`` the origins' Morton codes."""
+    if sort_key == "hybrid":
+        # coarse origin cell (2 Morton bits an axis), then the direction
+        # octant, then fine Morton
+        return ((m >> 21) << 24) | (_octant(d) << 21) | (m & 0x1FFFFF)
+    if sort_key in ("dir6", "dir9", "dir6_cluster"):
+        bits = 3 if sort_key == "dir9" else 2
+        dirq = _dir_cone(d, bits)
+        if sort_key == "dir6_cluster":
+            # the cone, then the cluster the ray bounced off, then coarse
+            # Morton
+            clu_bin = torch.clamp(prev_tri, 0, 2 ** 30) // cluster_size
+            return ((dirq << 24) | ((clu_bin & 0x3FF) << 14)
+                    | ((m >> 13) & 0x3FFF))
+        return (dirq << (30 - 3 * bits)) | (m >> (3 * bits - 3))
+    # dir_major: the direction octant, then origin Morton (also the
+    # cluster layouts' key where they are off)
+    return (_octant(d) << 27) | m
+
+
+def shadow_cluster_key(scid, scid2, light_idx, m, nc_tot: int,
+                       bits_l: int) -> torch.Tensor:
+    """The cluster shadow key (``renderer.py:1306-1316``): the segment's
+    nearest cluster, the second nearest below it (``shadow_key2``; None
+    leaves it out), the light (``bits_l`` bits), then the top Morton bits
+    of the origin."""
+    cbits_s = max(1, nc_tot.bit_length())
+    c2bits_s = (0 if scid2 is None
+                else min(cbits_s, max(0, 30 - cbits_s - bits_l)))
+    mbits_s = max(0, 30 - cbits_s - c2bits_s - bits_l)
+    skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
+            | (m >> max(0, 27 - mbits_s)))
+    if c2bits_s:
+        skey = skey | ((scid2 & ((1 << c2bits_s) - 1))
+                       << (mbits_s + bits_l))
+    return skey
+
+
 def _from_end(bounce_from: int, max_bounces: int) -> int:
     """A bounce threshold; negative values count from the last bounce."""
     return bounce_from if bounce_from >= 0 else max_bounces + bounce_from
@@ -364,9 +506,15 @@ def _tile_unflatten(flat: torch.Tensor, h: int, w: int, th: int,
 
 def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                 px: torch.Tensor, py: torch.Tensor, offsets: torch.Tensor,
-                frame_index: int, tracer: str = "torch", tracers=None
+                frame_index: int, tracer: str = "torch", tracers=None,
+                baked_tables=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Path-trace one sample for a flat set of pixels.
+
+    ``baked_tables``: :func:`bake_tables`' result, computed here when the
+    config bakes and it is not given (a renderer keeps its own); ignored
+    where the config does not bake.  Where the primary pass bakes it calls
+    ``closest(..., baked=True)``.
 
     ``tracers`` overrides the (closest, any_hit) pair of
     :func:`make_tracers`, or with a third entry also the ``closest_rank``
@@ -432,9 +580,14 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                        + uv_y[:, None] * cam.up[None] + cam.forward[None])
         o = cam.position[None].expand(p, 3)
 
+    if not _bakes(spec, cfg, tracer):
+        baked_tables = None
+    elif baked_tables is None:
+        baked_tables = bake_tables(data, spec, cfg, tracer)
     tracers = tuple(tracers or make_tracers(
         data, spec, tracer, block, count_visits=tele,
-        counts=data.clu_counts if cfg.chunk_skip else None))
+        counts=data.clu_counts if cfg.chunk_skip else None,
+        baked=baked_tables))
     closest_fn, any_fn = tracers[:2]
     closest_rank_fn = (tracers[2] if len(tracers) > 2 else
                        make_closest_rank(data, spec, cfg, tracer, closest_fn))
@@ -443,139 +596,186 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     # ``cur`` maps the current (compacted) ray order back to the padded
     # pixel slot; the radiance scatters through it at the end.
     cur = torch.arange(p, dtype=torch.int32, device=dev)
+    # the previous bounce's hit triangle, for the hit-cluster sort keys
+    prev_tri = torch.full((p,), -1, dtype=torch.int32, device=dev)
     stats: Dict[str, torch.Tensor] = {
         "closest_rays": torch.zeros((), dtype=torch.int64, device=dev),
         "shadow_rays": torch.zeros((), dtype=torch.int64, device=dev)}
+    # The cluster sort keys, shadow and bounce, unless the tracer or the
+    # build takes the dir_major / light-major ones or the layout is not a
+    # cluster one.
+    cluster_layout = cfg.sort_key.startswith("cluster")
+    cluster_keys = not dir_keys and cluster_layout
+    bounce_key_from = _from_end(cfg.bounce_hit_key_from, cfg.max_bounces)
 
     def sorts_at(bounce: int) -> bool:
         """Do this bounce's rays go through the compaction sort?"""
-        return cfg.compaction and bounce > 0
+        return (cfg.compaction and (bounce > 0 or cfg.sort_primary)
+                and (cfg.sort_last_bounce or bounce < cfg.max_bounces - 1))
 
     def shadow_sorts_at(bounce: int) -> bool:
-        return cfg.shadow_sort and cfg.compaction and bounce > 0
+        return (cfg.shadow_sort and cfg.compaction
+                and (bounce > 0 or cfg.shadow_sort_primary))
+
+    def shadow_hit_key_at(bounce: int) -> bool:
+        """Does this bounce's shadow sort key on the hit's own cluster?"""
+        return cfg.shadow_hit_key or bounce >= shadow_key_from
 
     def rank_at_sort(bounce: int) -> bool:
         """Does ``bounce_sort(bounce)`` emit the packed rank 1..3 keys for
-        the rank-directed walk?  (The fused kernel gives no third rank.)"""
+        the rank-directed walk?  (The fused kernel gives no third rank, and
+        the hit-cluster key no exact keys.)"""
         return (closest_rank_fn is not None and cfg.sort_bounces
-                and cfg.sort_key == "cluster2" and not fused_keys)
+                and cfg.sort_key == "cluster2" and not fused_keys
+                and bounce < bounce_key_from)
 
     def pair_at(bounce: int) -> bool:
         """Does ``bounce_tail(bounce)`` take its shadow key and the next
         bounce's sort keys from one ``nearest_cluster_pair`` sweep?  Only
         where both use the exact broad phase over the shared origin, which
         refraction breaks (a refracted ray starts inside the surface)."""
-        return (cfg.pair_broadphase and not fused_keys and not dir_keys
-                and not cfg.enable_refraction
-                and cfg.sort_key == "cluster2" and bounce < shadow_key_from
-                and shadow_sorts_at(bounce) and bounce + 1 < cfg.max_bounces
-                and sorts_at(bounce + 1) and cfg.sort_bounces)
+        return (cfg.pair_broadphase and not cfg.fused_broadphase
+                and not dir_keys and not cfg.enable_refraction
+                and not cfg.shadow_key2 and cfg.sort_key == "cluster2"
+                and not shadow_hit_key_at(bounce) and shadow_sorts_at(bounce)
+                and bounce + 1 < cfg.max_bounces and sorts_at(bounce + 1)
+                and cfg.sort_bounces and bounce + 1 < bounce_key_from)
 
-    def bounce_sort(bounce, o, d, color, accum, idx, cur, alive, carried_bp):
-        """Compaction-sort one bounce's rays.  ``carried_bp`` holds this
-        bounce's keys where the previous tail's pair sweep computed them.
-        Returns the permuted per-ray state, ``known_miss`` (live rays the
-        broad phase proved can hit no cluster; None when the fold is off)
-        and the sorted rank keys (None unless :func:`rank_at_sort`)."""
-        known_miss = rank_keys = None
-        if cfg.sort_bounces and dir_keys:
-            # dir_major: direction octant, then origin Morton (the JAX
-            # package's key where the cluster keys are off)
-            octant = ((d[:, 0] > 0).to(torch.int32)
-                      + 2 * (d[:, 1] > 0).to(torch.int32)
-                      + 4 * (d[:, 2] > 0).to(torch.int32))
-            key = (octant << 27) | _morton_512(o, data)
-            key = torch.where(alive, key, _DEAD_KEY)
-            skey, perm = torch.sort(key)  # tie order is free
-        elif cfg.sort_bounces:
-            # Live rays grouped by their nearest slab-hit cluster (and the
-            # second nearest below it), then direction cone, then origin
-            # Morton: neighbouring rays share their first traversal visits.
-            # Cluster ids follow the Morton order of the BVH build.
-            m = _morton_512(o, data)
-            want2 = cfg.sort_key == "cluster2"
-            cbits = max(1, nc_tot.bit_length())
-            db = 2  # direction bits per axis: 64 cones
-            avail = 30 - cbits - 3 * db
-            c2bits = min(cbits, max(0, avail)) if want2 else 0
-            mbits = max(0, avail - c2bits)
-            gk_fused = cid2 = None
-            if carried_bp is not None:
-                cid, nckey = carried_bp[0], carried_bp[1]
-                if len(carried_bp) >= 4:  # packed ranks 2 and 3
-                    cid2 = decode_cluster_key(carried_bp[2], nc_tot)
-                    rank_keys = (nckey, carried_bp[2], carried_bp[3])
-                else:
-                    cid2 = carried_bp[2]
-            elif rank_at_sort(bounce):
-                # ranks 1..2 drive the walk, rank 3 is its certificate
-                cid, nckey, k2p, k3p = nearest_cluster(
-                    o, d, alive, data.clu_planes, bvh, return_key=True,
-                    return_second=2, return_packed=True)
-                cid2 = decode_cluster_key(k2p, nc_tot)
-                rank_keys = (nckey, k2p, k3p)
-            elif fused_keys:
-                nckey, k2f, gk_fused = _fused_keys(
-                    tracer, cfg, data, bvh, o, d, alive, want2=want2)
-                cid = decode_cluster_key(nckey, nc_tot)
-                if want2:
-                    cid2 = decode_cluster_key(k2f, nc_tot)
-            elif want2:
-                cid, nckey, cid2 = nearest_cluster(
-                    o, d, alive, data.clu_planes, bvh, return_key=True,
-                    return_second=1)
+    def cluster_sort_key(bounce, o, d, alive, prev_tri, carried_bp):
+        """The cluster layouts' key of the reference's ``bounce_sort``
+        (``renderer.py:542-727``): the nearest cluster's id (the no-cluster
+        group ``nc_tot`` for rays the miss fold proves can only hit the
+        global set), the second and third nearest below it as the layout
+        and the 30-bit budget allow, a direction cone, then as much origin
+        Morton as fits.  Returns (key, id bits, rank keys or None)."""
+        # the hit-cluster key, for the layout or from bounce_hit_key_from on
+        use_hit = cfg.sort_key == "cluster1_hit" or bounce >= bounce_key_from
+        bits = cluster_key_bits(cfg.sort_key, nc_tot, use_hit)
+        want2 = bits[1] > 0
+        want3 = bits[2] > 0  # no bits left: no third rank pass
+        use_fused = fused_keys and not want3 and not use_hit
+        gk_fused = cid2 = cid3 = rank_keys = None
+        if carried_bp is not None:
+            cid, nckey = carried_bp[0], carried_bp[1]
+            if len(carried_bp) >= 4:  # packed ranks 2 and 3
+                cid2 = decode_cluster_key(carried_bp[2], nc_tot)
+                rank_keys = (nckey, carried_bp[2], carried_bp[3])
             else:
-                cid, nckey = nearest_cluster(o, d, alive, data.clu_planes,
-                                             bvh, return_key=True)
-            if cfg.cluster_miss_fold and bvh.num_global > 0:
-                # A ray whose nearest cluster is entered beyond its
-                # global-set hit finds nothing closer in any cluster: it
-                # joins the no-cluster group.  One chop step of margin
-                # covers both keys' truncated mantissas, one more the fused
-                # kernel's Newton-refined t (a quarter step off the exact
-                # divide); the margin only ever folds fewer rays.
-                gk = (gk_fused if gk_fused is not None
-                      else trace_cuda.global_seed_keys(o, d, alive,
-                                                       data.tri_planes, bvh))
-                tn_f = (nckey & ~NC_IDM).view(torch.float32)
-                g_plus = ((gk & ~trace_cuda.IDX_MASK)
-                          + ((2 if gk_fused is not None else 1)
-                             << trace_cuda.IDX_BITS)).view(torch.float32)
-                beats = (gk < trace_cuda._MISS_KEY) & (tn_f >= g_plus)
-                cid = torch.where(beats, nc_tot, cid)
-            shift = 30 - cbits
-            key = cid << shift
-            if c2bits:
-                shift -= c2bits
-                key = key | ((cid2 & ((1 << c2bits) - 1)) << shift)
-            lvl = 1 << (db - 1)
-            q = torch.clamp(((d + 1.0) * lvl).to(torch.int32), 0, 2 * lvl - 1)
-            shift -= 3 * db
-            key = key | (((q[:, 0] << (2 * db)) | (q[:, 1] << db) | q[:, 2])
-                         << shift)
-            key = key | (m >> max(0, 27 - mbits))
+                cid2 = carried_bp[2]
+        elif rank_at_sort(bounce):
+            # ranks 1..2 drive the walk, rank 3 is its certificate
+            cid, nckey, k2p, k3p = nearest_cluster(
+                o, d, alive, data.clu_planes, bvh, return_key=True,
+                return_second=2, return_packed=True)
+            cid2 = decode_cluster_key(k2p, nc_tot)
+            rank_keys = (nckey, k2p, k3p)
+        elif use_fused:
+            nckey, k2f, gk_fused = _fused_keys(
+                tracer, cfg, data, bvh, o, d, alive, want2=want2)
+            cid = decode_cluster_key(nckey, nc_tot)
+            if want2:
+                cid2 = decode_cluster_key(k2f, nc_tot)
+        elif use_hit:
+            # A bounce ray starts on its previous hit, inside that
+            # triangle's cluster box: the cluster is the key, for free;
+            # global-set origins take their nearest super's first cluster.
+            # The broad phase and the miss fold run on the super boxes
+            # (a super's entry is a lower bound on its clusters').
+            s_per = data.clu_planes.shape[1]
+            nsp = data.sup_planes.shape[0]
+            sid, nckey = nearest_cluster(o, d, alive,
+                                         data.sup_planes[:, None, :], bvh,
+                                         return_key=True)
+            own = torch.clamp(torch.clamp(prev_tri, min=0)
+                              // bvh.cluster_size, max=nc_tot - 1)
+            on_clu = (prev_tri >= 0) & (prev_tri < bvh.global_base)
+            cid = torch.where(on_clu, own,
+                              torch.clamp(sid * s_per, max=nc_tot - 1))
+            cid = torch.where(sid >= nsp, nc_tot, cid).to(torch.int32)
+        elif want2:
+            res = nearest_cluster(o, d, alive, data.clu_planes, bvh,
+                                  return_key=True,
+                                  return_second=2 if want3 else 1)
+            cid, nckey, cid2 = res[:3]
+            cid3 = res[3] if want3 else None
+        else:
+            cid, nckey = nearest_cluster(o, d, alive, data.clu_planes, bvh,
+                                         return_key=True)
+        if cfg.cluster_miss_fold and bvh.num_global > 0:
+            # A ray whose nearest cluster is entered beyond its global-set
+            # hit finds nothing closer in any cluster: it joins the
+            # no-cluster group.  One chop step of margin covers both keys'
+            # truncated mantissas, one more the fused kernel's
+            # Newton-refined t (a quarter step off the exact divide); the
+            # margin only ever folds fewer rays.
+            gk = (gk_fused if gk_fused is not None
+                  else trace_cuda.global_seed_keys(o, d, alive,
+                                                   data.tri_planes, bvh))
+            tn_f = (nckey & ~NC_IDM).view(torch.float32)
+            g_plus = ((gk & ~trace_cuda.IDX_MASK)
+                      + ((2 if gk_fused is not None else 1)
+                         << trace_cuda.IDX_BITS)).view(torch.float32)
+            beats = (gk < trace_cuda._MISS_KEY) & (tn_f >= g_plus)
+            cid = torch.where(beats, nc_tot, cid)
+        key = cluster_key(bits, cid, cid2, cid3, d, _morton_512(o, data))
+        return key, bits[0], rank_keys
+
+    def bounce_sort(bounce, o, d, color, accum, idx, cur, alive, prev_tri,
+                    carried_bp):
+        """Compaction-sort one bounce's rays.  ``carried_bp`` holds this
+        bounce's keys where the previous tail's pair sweep computed them;
+        ``prev_tri`` is the previous bounce's hit, in this order.  Returns
+        the permuted per-ray state, ``known_miss`` (live rays the broad
+        phase proved can hit no cluster; None when the fold is off) and the
+        sorted rank keys (None unless :func:`rank_at_sort`)."""
+        rank_keys = cbits = None
+        if cfg.sort_bounces and cluster_keys:
+            key, cbits, rank_keys = cluster_sort_key(bounce, o, d, alive,
+                                                     prev_tri, carried_bp)
+        elif cfg.sort_bounces:
+            # the exact tracers and builds past 4,095 padded clusters take
+            # dir_major for the cluster layouts, as the reference does
+            key = direction_key(cfg.sort_key if not cluster_layout
+                                else "dir_major", d, _morton_512(o, data),
+                                prev_tri, bvh.cluster_size)
+        if cfg.sort_bounces:
             key = torch.where(alive, key, _DEAD_KEY)
             skey, perm = torch.sort(key)  # tie order is free
         else:
             # Partition only: live rays first, in their (tile) order.
             key = torch.where(alive, 0, _DEAD_KEY).to(torch.int32)
             skey, perm = torch.sort(key, stable=True)
-        o, d, color, accum = o[perm], d[perm], color[perm], accum[perm]
-        idx, cur = idx[perm], cur[perm]
+        o, d, idx, cur = o[perm], d[perm], idx[perm], cur[perm]
+        if cfg.sort_pack_f16:
+            # throughput and radiance ride the sort as three f16-pair words
+            words = torch.stack([_pack2f16(color[:, 0], color[:, 1]),
+                                 _pack2f16(color[:, 2], accum[:, 0]),
+                                 _pack2f16(accum[:, 1], accum[:, 2])], 1)
+            words = words[perm]
+            c0, c1 = _unpack2f16(words[:, 0])
+            c2, a0 = _unpack2f16(words[:, 1])
+            a1, a2 = _unpack2f16(words[:, 2])
+            color = torch.stack([c0, c1, c2], dim=1)
+            accum = torch.stack([a0, a1, a2], dim=1)
+        else:
+            color, accum = color[perm], accum[perm]
         alive = skey < _DEAD_KEY
         if rank_keys is not None:
             rank_keys = tuple(k[perm] for k in rank_keys)
-        if cfg.sort_bounces and cfg.cluster_miss_fold and not dir_keys:
+        known_miss = None
+        if cbits is not None and cfg.cluster_miss_fold:
             # the no-cluster group sits just below the dead sentinel
             known_miss = alive & ((skey >> (30 - cbits)) == nc_tot)
         return o, d, color, accum, idx, cur, alive, known_miss, rank_keys
 
     def shadow_trace(bounce, shadow_o, sdir, sdist, light_idx, tri,
-                     kernel_shadow, sk1, pair_scid):
+                     kernel_shadow, sk, pair_scid):
         """The any-hit pass of one bounce, through the shadow re-sort where
-        it applies.  Returns the (N,) occlusion in the caller's ray order,
-        the mask the pass traced (after the re-sort's fold) in that order,
-        and with telemetry the pass's visits in its own ray order."""
+        it applies; ``sk`` holds the fused broad phase's nearest and second
+        nearest cluster keys where it ran.  Returns the (N,) occlusion in
+        the caller's ray order, the mask the pass traced (after the
+        re-sort's fold) in that order, and with telemetry the pass's visits
+        in its own ray order."""
         if not shadow_sorts_at(bounce):
             res = any_fn(shadow_o, sdir, sdist, kernel_shadow)
             return ((res[0], kernel_shadow, res[1]) if tele
@@ -583,18 +783,20 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         # Shadow origins are this bounce's scattered hit points and the
         # direction follows from the origin (it points at the light), so the
         # key is (nearest cluster the segment can hit, light, origin
-        # Morton), or (light, origin Morton) for the exact tracers.  A
+        # Morton), or (light, origin Morton) for the exact tracers and the
+        # layouts that are not cluster keys.  A
         # segment that overlaps no cluster is clear: with the fold it skips
         # the kernel (global-set occlusion is already out of
         # ``kernel_shadow``).
         m = _morton_512(shadow_o, data)
         bits_l = max(1, (lcount - 1).bit_length())
-        if dir_keys:
+        scid2 = None
+        if not cluster_keys:
             # light-major: light, then origin Morton
             shift = 29 - bits_l
             skey = (light_idx << shift) | (m if shift >= 27
                                            else m >> (27 - shift))
-        elif bounce >= shadow_key_from:
+        elif shadow_hit_key_at(bounce):
             # The ray starts on this bounce's hit triangle, inside its
             # cluster's box: that cluster is the key, for free (hits on the
             # global set form a group of their own), and the fold tests the
@@ -609,8 +811,15 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                 kernel_shadow = kernel_shadow & (
                     sid < data.sup_planes.shape[0])
         else:
-            if sk1 is not None:  # the fused pass already ran
-                scid = decode_cluster_key(sk1, nc_tot)
+            if sk is not None:  # the fused pass already ran
+                scid = decode_cluster_key(sk[0], nc_tot)
+                if cfg.shadow_key2:
+                    scid2 = decode_cluster_key(sk[1], nc_tot)
+            elif cfg.shadow_key2:
+                # the second-nearest cluster below the first
+                scid, scid2 = nearest_cluster(shadow_o, sdir, kernel_shadow,
+                                              data.clu_planes, bvh,
+                                              max_t=sdist, return_second=1)
             elif pair_scid is not None:  # so did the pair sweep
                 scid = pair_scid
             else:
@@ -618,11 +827,9 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                                        data.clu_planes, bvh, max_t=sdist)
             if cfg.cluster_miss_fold:
                 kernel_shadow = kernel_shadow & (scid < nc_tot)
-        if not dir_keys:
-            cbits_s = max(1, nc_tot.bit_length())
-            mbits_s = max(0, 30 - cbits_s - bits_l)
-            skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
-                    | (m >> max(0, 27 - mbits_s)))
+        if cluster_keys:
+            skey = shadow_cluster_key(scid, scid2, light_idx, m, nc_tot,
+                                      bits_l)
         skey = torch.where(kernel_shadow, skey, _DEAD_KEY)
         skey, perm = torch.sort(skey)
         res = any_fn(shadow_o[perm], sdir[perm], sdist[perm],
@@ -638,8 +845,9 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                     rank_keys):
         """Closest hit, shading, the light sample and its shadow ray, and
         the bounce continuation: everything after the compaction sort.
-        Returns the per-ray state and the next bounce's carried keys (None
-        unless :func:`pair_at`)."""
+        Returns the per-ray state, this bounce's hit triangles (the next
+        sort's ``prev_tri``) and the next bounce's carried keys (None unless
+        :func:`pair_at`)."""
         n_alive = alive.sum()
         stats["closest_rays"] += n_alive
         if cfg.telemetry:
@@ -681,6 +889,11 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                 stats[f"rank_unresolved_b{bounce}"] = res[1]
                 if tele:
                     stats[f"visits_b{bounce}"] = res[2]
+            elif bounce == 0 and baked_tables is not None:
+                # every primary ray leaves the camera: the baked tables
+                hit = closest_fn(o, d, m_kernel, seed, baked=True)
+                if tele:
+                    hit, stats[f"visits_b{bounce}"] = hit
             else:
                 hit = closest_fn(o, d, m_kernel, seed)
                 if tele:
@@ -762,13 +975,16 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             # scene-spanning planes occlude leave the kernel's mask (they still
             # count as traced shadow rays).  The fused pass also gives the
             # shadow sort's cluster key where that is the exact one.
-            sk1 = None
-            want_skey = (shadow_sorts_at(bounce) and bounce < shadow_key_from
-                         and fused_keys)
+            sk = None
+            want_skey = (shadow_sorts_at(bounce) and cluster_keys
+                         and not shadow_hit_key_at(bounce) and fused_keys)
             if cfg.fused_broadphase and (want_skey or fold_global):
-                sk1, _, socc = _fused_keys(
+                sk1, sk2, socc = _fused_keys(
                     tracer, cfg, data, bvh, shadow_o, ls.direction, do_shadow,
-                    max_t=sdist, with_clusters=want_skey, any_mode=True)
+                    max_t=sdist, with_clusters=want_skey, any_mode=True,
+                    want2=cfg.shadow_key2 and want_skey)
+                if want_skey:
+                    sk = (sk1, sk2)
                 g_occ = (socc > 0 if fold_global
                          else torch.zeros_like(do_shadow))
             elif fold_global:
@@ -877,7 +1093,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         with named_scope("shadow trace"):
             occluded, kernel_shadow, svisits = shadow_trace(
                 bounce, shadow_o, ls.direction, sdist, light_idx, tri,
-                kernel_shadow, sk1, pair_scid)
+                kernel_shadow, sk, pair_scid)
         if tele:
             stats[f"shadow_visits_b{bounce}"] = svisits
         if cfg.export_rays:
@@ -896,7 +1112,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             nee = lcolor * dcolor if nee_w is None else lcolor * dcolor * nee_w
             accum = accum + torch.where(visible[:, None], nee,
                                         torch.zeros_like(accum))  # :371-373
-        return o_next, d_next, color_next, accum, alive, pair_bp
+        return o_next, d_next, color_next, accum, alive, hit.tri, pair_bp
 
     carried_bp = None
     for bounce in range(cfg.max_bounces):
@@ -905,11 +1121,13 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             with named_scope("sort keys"):
                 (o, d, color, accum, idx, cur, alive, known_miss,
                  rank_keys) = bounce_sort(bounce, o, d, color, accum, idx,
-                                          cur, alive, carried_bp)
-        o, d, color, accum, alive, carried_bp = bounce_tail(
+                                          cur, alive, prev_tri, carried_bp)
+        o, d, color, accum, alive, prev_tri, carried_bp = bounce_tail(
             bounce, o, d, color, accum, idx, alive, known_miss, rank_keys)
 
-    if cfg.compaction and cfg.max_bounces > 1:
+    # (the reference un-permutes only with more than one bounce, which
+    # leaves a sorted single bounce, sort_primary, in the sort's order)
+    if any(sorts_at(b) for b in range(cfg.max_bounces)):
         with named_scope("bounce + accumulate"):
             radiance = torch.empty_like(accum)
             radiance[cur.long()] = accum  # back to pixel order
@@ -920,12 +1138,13 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
 
 def render_sample(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                   offsets: torch.Tensor, frame_index: int,
-                  tracer: str = "torch", tracers=None
+                  tracer: str = "torch", tracers=None, baked_tables=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render one full-frame sample; returns ((H, W, 3) radiance, stats).
 
     Pixels are traced in tile-major order when the image divides into
-    primary-block tiles, then restored to row-major order."""
+    primary-block tiles, then restored to row-major order.  ``tracers`` and
+    ``baked_tables`` as :func:`render_rays`."""
     px, py = pixel_coords(cfg, offsets.device)
     tiles = tile_shape(cfg)
     if tiles is not None:
@@ -935,7 +1154,7 @@ def render_sample(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         offsets = _tile_flatten(offsets.reshape(cfg.height, cfg.width),
                                 th, tw)
     radiance, stats = render_rays(data, spec, cfg, px, py, offsets,
-                                  frame_index, tracer, tracers)
+                                  frame_index, tracer, tracers, baked_tables)
     if tiles is not None:
         return _tile_unflatten(radiance, cfg.height, cfg.width, th, tw), stats
     return radiance.reshape(cfg.height, cfg.width, 3), stats
@@ -965,6 +1184,8 @@ class Renderer:
             cluster_size=cfg.cluster_size, builder=cfg.bvh_builder,
             presplit=cfg.bvh_presplit, builder_alpha=cfg.bvh_alpha,
             device=self.device)
+        # the primary pass's tables under bake_primary, once a build
+        self.baked = bake_tables(self.data, self.spec, cfg, self.tracer)
         self.offsets = make_pixel_offsets(cfg, self.device)
         self.reset()
 
@@ -983,7 +1204,8 @@ class Renderer:
         for _ in range(k):
             sample, stats = render_sample(self.data, self.spec, self.cfg,
                                           self.offsets, self.frame_index,
-                                          self.tracer)
+                                          self.tracer,
+                                          baked_tables=self.baked)
             self.accum = accumulate(self.accum, sample, self.frame_index)
             self.ray_totals = self.ray_totals + torch.stack(
                 [stats["closest_rays"], stats["shadow_rays"]]).float()
@@ -1003,7 +1225,8 @@ class Renderer:
         the sample holds no live ray (nothing is rebuilt)."""
         ecfg = dataclasses.replace(self.cfg, export_rays=stride)
         _, stats = render_sample(self.data, self.spec, ecfg, self.offsets,
-                                 self.frame_index, self.tracer)
+                                 self.frame_index, self.tracer,
+                                 baked_tables=self.baked)
         rows = [v.cpu().numpy() for k, v in sorted(stats.items())
                 if k.startswith(("rays_b", "srays_b"))]
         if not rows:
@@ -1016,6 +1239,7 @@ class Renderer:
             cluster_size=self.cfg.cluster_size, builder="sah_rays",
             presplit=self.cfg.bvh_presplit, builder_alpha=self.cfg.bvh_alpha,
             rays=rays, device=self.device)
+        self.baked = bake_tables(self.data, self.spec, self.cfg, self.tracer)
         return True
 
     @property
@@ -1055,8 +1279,14 @@ class Renderer:
 
     @property
     def total_samples(self) -> int:
-        """Samples folded into ``accum`` so far."""
+        """Samples folded into ``accum`` so far: the checkpoints' portable
+        unit of progress.  The plain renderer folds one a step;
+        ``parallel.ShardedRenderer`` overrides this and
+        :meth:`_set_total_samples`."""
         return self.frame_index
+
+    def _set_total_samples(self, total: int) -> None:
+        self.frame_index = int(total)
 
     def state_dict(self) -> dict:
         return {
@@ -1082,7 +1312,7 @@ class Renderer:
                     else state["frame_index"])
         self.accum = torch.as_tensor(np.asarray(state["accum"], np.float32),
                                      device=self.device)
-        self.frame_index = total
+        self._set_total_samples(total)
         self.ray_totals = torch.tensor(
             [float(state.get("total_closest_rays", 0)),
              float(state.get("total_shadow_rays", 0))],

@@ -46,8 +46,9 @@ from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
 from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 from metal_raytracing_tpu_torch.scene import scene_data_from_reference
 from metal_raytracing_tpu_torch.types import RenderConfig
-from torch_port_common import (build_both, few_torch_threads,  # noqa: F401
-                               jax_scene_arrays, seeded_rays)
+from torch_port_common import (MemoTracers, build_both,  # noqa: F401
+                               few_torch_threads, jax_scene_arrays,
+                               seeded_rays)
 
 SIZES = {"coatball": (64, 48), "dragon": (32, 24)}
 N_RAYS = 768
@@ -188,54 +189,6 @@ def test_morton_codes_equal_reference(scenes, scene):
     assert len(torch.unique(got)) > 2000
 
 
-def _ray_rows(*cols) -> list:
-    """One bytes key per ray from its columns' bits."""
-    rows = torch.cat([c.reshape(c.shape[0], -1).view(torch.int32)
-                      for c in cols], dim=1)
-    return [r.tobytes() for r in rows.numpy()]
-
-
-class MemoTracers:
-    """The plain (closest, any_hit) pair of ``R.make_tracers`` with a
-    per-ray memo: each call traces only the live rays no earlier call
-    traced, and takes the rest from the memo."""
-
-    def __init__(self, tdata, tspec):
-        self.closest_fn, self.any_fn = R.make_tracers(tdata, tspec, "torch")
-        self.hits, self.occ = {}, {}
-
-    def _split(self, memo, keys, mask):
-        live = mask.nonzero()[:, 0].tolist()
-        new = torch.zeros_like(mask)
-        new[[i for i in live if keys[i] not in memo]] = True
-        return live, new
-
-    def closest(self, o, d, m, seed, seed_base=None):
-        none = torch.full((o.shape[0], 1), -1, dtype=torch.int32)
-        keys = _ray_rows(o, d, none if seed is None else seed[:, None],
-                         none if seed_base is None else seed_base[:, None])
-        live, new = self._split(self.hits, keys, m)
-        hit = self.closest_fn(o, d, new, seed, seed_base)
-        t, tri = hit.t.clone(), hit.tri.clone()
-        for i in live:
-            if new[i]:
-                self.hits[keys[i]] = (t[i].item(), tri[i].item())
-            else:
-                t[i], tri[i] = self.hits[keys[i]]
-        return dataclasses.replace(hit, t=t, tri=tri)
-
-    def any_hit(self, o, d, mt, m):
-        keys = _ray_rows(o, d, mt[:, None])
-        live, new = self._split(self.occ, keys, m)
-        occ = self.any_fn(o, d, mt, new).clone()
-        for i in live:
-            if new[i]:
-                self.occ[keys[i]] = occ[i].item()
-            else:
-                occ[i] = self.occ[keys[i]]
-        return occ
-
-
 @pytest.fixture(scope="module")
 def renders(scenes):
     """``render(scene, **config) -> (image, stats)``: one port sample of
@@ -333,22 +286,23 @@ def test_dragon_rank_trace_image_matches_reference(scenes, renders):
 
 
 def test_config_values_the_port_does_not_carry_raise():
-    for key in ("dir6", "cluster3", "cluster1_hit", "dir_major"):
+    for key in ("dir12", "cluster4", ""):
         with pytest.raises(ValueError, match="sort_key"):
             RenderConfig(sort_key=key)
     for k in (1, 3):
         with pytest.raises(ValueError, match="rank_trace"):
             RenderConfig(rank_trace=k)
-    for knob in ("sort_primary", "sort_last_bounce", "sort_pack_f16",
-                 "shadow_key2", "shadow_hit_key", "shadow_sort_primary",
-                 "bounce_hit_key_from", "live_widths", "carry_seed"):
+    for knob in ("live_widths", "live_from_bounce", "carry_seed",
+                 "shadow_mid_order", "shadow_ray_block_last"):
         with pytest.raises(TypeError):
             RenderConfig(**{knob: getattr(JConfig(), knob)})
-    # the new fields keep the reference's defaults, compaction aside
+    # the compaction fields keep the reference's defaults, compaction aside
     ref = JConfig()
     for name in ("sort_bounces", "sort_key", "cluster_miss_fold",
                  "shadow_sort", "shadow_hit_key_from", "pair_broadphase",
-                 "rank_trace"):
+                 "rank_trace", "sort_primary", "sort_last_bounce",
+                 "sort_pack_f16", "shadow_key2", "shadow_hit_key",
+                 "shadow_sort_primary", "bounce_hit_key_from"):
         assert getattr(RenderConfig(), name) == getattr(ref, name), name
     assert ref.compaction and not RenderConfig().compaction
 

@@ -154,8 +154,8 @@ def test_cuda_tracer_on_cpu_device_raises():
 
 
 def test_unported_config_knobs_are_errors():
-    for knob in ("sort_primary", "samples_per_dispatch", "live_widths",
-                 "bake_primary", "visit_pairs", "visit_pairs2"):
+    for knob in ("carry_seed", "samples_per_dispatch", "live_widths",
+                 "shadow_mid_order", "visit_pairs", "visit_pairs2"):
         with pytest.raises(TypeError):
             RenderConfig(**{knob: False})
     with pytest.raises(ValueError, match="tracer"):
@@ -188,6 +188,7 @@ def test_port_imports_no_jax():
             "import metal_raytracing_tpu_torch.utils.metrics\n"
             "import metal_raytracing_tpu_torch.ops.broadphase_cuda\n"
             "import metal_raytracing_tpu_torch.ops._build\n"
+            "import metal_raytracing_tpu_torch.parallel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'metal_raytracing_tpu')]\n"
             "assert not bad, bad\n")

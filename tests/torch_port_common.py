@@ -7,6 +7,8 @@ its 9 collected items: ``pytest -n 6 --dist loadfile`` hands out files in
 order of their item count, and ``test_sharding.py``, the suite's longest
 file, must start as early as it did, or the suite's wall moves."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -70,6 +72,59 @@ def record_passes(tdata, tspec, cfg) -> dict:
     R.render_sample(tdata, tspec, cfg, R.make_pixel_offsets(cfg), 0,
                     tracers=(rec_closest, rec_any))
     return calls
+
+
+def _ray_rows(*cols) -> list:
+    """One bytes key per ray from its columns' bits."""
+    rows = torch.cat([c.reshape(c.shape[0], -1).view(torch.int32)
+                      for c in cols], dim=1)
+    return [r.tobytes() for r in rows.numpy()]
+
+
+class MemoTracers:
+    """The plain (closest, any_hit) pair of ``R.make_tracers`` with a
+    per-ray memo: each call traces only the live rays no earlier call
+    traced, and takes the rest from the memo.  A traced ray's result depends
+    only on the ray (origin, direction, seed, segment length, and whether
+    it runs on the baked tables), so configs that trace the same rays in
+    other orders share the bits."""
+
+    def __init__(self, tdata, tspec, baked=None):
+        self.closest_fn, self.any_fn = R.make_tracers(tdata, tspec, "torch",
+                                                      baked=baked)
+        self.hits, self.occ = {}, {}
+
+    def _split(self, memo, keys, mask):
+        live = mask.nonzero()[:, 0].tolist()
+        new = torch.zeros_like(mask)
+        new[[i for i in live if keys[i] not in memo]] = True
+        return live, new
+
+    def closest(self, o, d, m, seed, seed_base=None, baked=False):
+        none = torch.full((o.shape[0], 1), -1, dtype=torch.int32)
+        keys = _ray_rows(o, d, none if seed is None else seed[:, None],
+                         none if seed_base is None else seed_base[:, None],
+                         torch.full_like(none, int(baked)))
+        live, new = self._split(self.hits, keys, m)
+        hit = self.closest_fn(o, d, new, seed, seed_base, baked=baked)
+        t, tri = hit.t.clone(), hit.tri.clone()
+        for i in live:
+            if new[i]:
+                self.hits[keys[i]] = (t[i].item(), tri[i].item())
+            else:
+                t[i], tri[i] = self.hits[keys[i]]
+        return dataclasses.replace(hit, t=t, tri=tri)
+
+    def any_hit(self, o, d, mt, m):
+        keys = _ray_rows(o, d, mt[:, None])
+        live, new = self._split(self.occ, keys, m)
+        occ = self.any_fn(o, d, mt, new).clone()
+        for i in live:
+            if new[i]:
+                self.occ[keys[i]] = occ[i].item()
+            else:
+                occ[i] = self.occ[keys[i]]
+        return occ
 
 
 @pytest.fixture(scope="module", autouse=True)
