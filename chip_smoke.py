@@ -140,7 +140,32 @@ Phases, each of which raises (exit code != 0) on failure:
 19. every sort layout and knob of the JAX renderer (M1b) on dragon
     1024x1024 at ``compaction=True``: each image against config A's (RMSE
     < 1e-6; ``sort_pack_f16``, which rounds to f16, at the golden gate),
-    with its ms/sample and profiled device ms/sample.
+    with its ms/sample and profiled device ms/sample;
+20. ``samples_per_dispatch`` as CUDA graphs: dragon 1024x1024 A,
+    ``bake_primary``, D and ``tracer="bvh"``, coatball 1024x768 and
+    plane_sphere 256x256 (and, untimed, plane_sphere 64x64 with
+    ``tracer="bruteforce"``), each renderer (which steps its batch as one graph
+    replay) against an eager twin over the same build: one eager sample
+    under ``torch.cuda.set_sync_debug_mode("error")``, the capture's
+    launch counts against an eager sample's, ms/sample in turns, device
+    ms/sample (the graph's read twice around the eager one, and by
+    back-to-back graph turns), kernels and host launch calls a sample,
+    capture seconds and pool bytes, and the two images equal bit for bit; graph batches of 1,
+    2 and 4 in turns on dragon A and coatball; ``refine`` between two
+    batches, a checkpoint resumed in a fresh renderer, and the CLI's
+    ``render --spp 6 --save-every 4`` checkpointing at samples 4 and 6.
+
+The renderers replay CUDA graphs, so the kernel wrappers' launch counts
+count a graph's launches once, when it is captured, and a replay's not at
+all.  A run's counts (each phase resets them before its run: the warm-up
+render, which captures the graphs the timed renders replay, and the timed
+renders) are the wrapper calls of its warm-up sample and captures, and
+each main path checks them against one eager sample of the renderer's
+config (``sample_launches``): (1 + the samples its graphs captured) times
+that sample's counts (``graphed_run``), so a kernel missing from a graph
+fails the phase; the profiled replay of a timed graph must run each
+kernel as often a sample as the eager sample (``checked_profile``).  The
+kernels line's ``launches_of`` says what each row's ``launches`` hold.
 
 A bound is the larger of the pass's bytes (rays in, results out, plane
 tables once) over 3.35 TB/s, the H100 SXM's published HBM rate, and its
@@ -1018,9 +1043,10 @@ CONFIGS = (  # (label, config keywords)
 
 
 def four_configs(card, size):
-    """The dragon main path in four configs in turns (A B C D, twice), with
-    launch counts per timed run.  Returns each config's launch counts over
-    its timed runs, and the samples of those runs."""
+    """The dragon main path in four configs in turns (A B C D, twice).
+    Returns each config's launch counts over its run (the warm-up render,
+    which captures the graphs, and the timed renders, which replay them;
+    checked by :func:`graphed_run`) and what they hold."""
     import torch
 
     from metal_raytracing_tpu_torch.io.image import rmse
@@ -1028,17 +1054,19 @@ def four_configs(card, size):
     from metal_raytracing_tpu_torch.renderer import Renderer
     from metal_raytracing_tpu_torch.scenes import get_scene
     from metal_raytracing_tpu_torch.types import RenderConfig
-    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
 
     w, h = size
     scene = get_scene("dragon", w, h)
     rs = [Renderer(scene, RenderConfig(width=w, height=h, **kw),
                    device="cuda") for _, kw in CONFIGS]
-    for r in rs:  # warm-up: one sample each
-        r.render(1)
+    totals = {}
+    for (label, _), r in zip(CONFIGS, rs):
+        # warm-up: the timed renders' steps, so their graphs are captured
+        TC.reset_launch_counts()
+        r.render(ROUND_SAMPLES)
+        totals[label] = launch_counts()
     torch.cuda.synchronize()
     rows = {label: [] for label, _ in CONFIGS}
-    totals = {label: {} for label, _ in CONFIGS}
     for _ in range(ROUNDS):
         for (label, kw), r in zip(CONFIGS, rs):
             rays0 = r.total_closest_rays + r.total_shadow_rays
@@ -1048,38 +1076,38 @@ def four_configs(card, size):
             r.render(ROUND_SAMPLES)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
-            counts = launch_counts()
+            totals[label] = {k: v + launch_counts()[k]
+                             for k, v in totals[label].items()}
             rays = r.total_closest_rays + r.total_shadow_rays - rays0
-            rows[label].append((sec / ROUND_SAMPLES * 1e3, rays / sec / 1e6,
-                                counts))
-            totals[label] = {k: v + totals[label].get(k, 0)
-                             for k, v in counts.items()}
+            rows[label].append((sec / ROUND_SAMPLES * 1e3, rays / sec / 1e6))
+    per_sample, notes = {}, {}
+    for (label, _), r in zip(CONFIGS, rs):
+        per_sample[label], notes[label] = graphed_run(label, r,
+                                                      totals[label])
     ref = rs[0].image
     for (label, _), r in zip(CONFIGS, rs):
         img = r.image
         assert img.shape == (h, w, 3) and bool(np.isfinite(img).all())
         assert float(img.min()) >= 0.0 and float(img.max()) > 0.01
         err = rmse(img, ref)
-        per = {k: v / ROUND_SAMPLES for k, v in rows[label][-1][2].items()
-               if v}
-        log(f"  {label}: " + " / ".join(f"{ms:.3f}" for ms, _, _ in
+        per = {k: v for k, v in per_sample[label].items() if v}
+        log(f"  {label}: " + " / ".join(f"{ms:.3f}" for ms, _ in
                                         rows[label])
-            + " ms/sample, " + " / ".join(f"{mr:.3f}" for _, mr, _ in
+            + " ms/sample, " + " / ".join(f"{mr:.3f}" for _, mr in
                                           rows[label])
             + f" Mrays/s; launches/sample {per}; RMSE vs compaction=False "
             f"after {r.total_samples} samples {err:.3e} (gate < "
             f"{SAME_IMAGE_RMSE}); on {card}")
         assert err < SAME_IMAGE_RMSE, (label, err)
-    samples = ROUNDS * ROUND_SAMPLES
-    per = {k: v / samples for k, v in totals[CONFIGS[2][0]].items()}
+    per = per_sample[CONFIGS[2][0]]
     assert per["closest_rank"] == 2 and per["closest_hier"] == 3, per
     assert per["any_hier"] == 3 and per["closest_flat"] == 0, per
-    fused = rows[CONFIGS[3][0]][-1][2]
-    assert fused["broadphase"] == 6 * ROUND_SAMPLES, fused
-    assert fused["broadphase_clusters"] >= ROUND_SAMPLES, fused
+    fused = per_sample[CONFIGS[3][0]]
+    assert fused["broadphase"] == 6, fused
+    assert fused["broadphase_clusters"] >= 1, fused
     sl = rs[2]
     wall_ms = rows[CONFIGS[2][0]][-1][0]
-    prof = profile_renderer(sl, 2)
+    prof = checked_profile(CONFIGS[2][0], sl, 2, per_sample[CONFIGS[2][0]])
     busy = prof.device_ms_per_sample / wall_ms
     log(f"  slice profiled 2 samples: device {prof.device_ms_per_sample:.3f} "
         f"ms/sample in {prof.launches // prof.samples} kernels/sample; busy "
@@ -1087,18 +1115,25 @@ def four_configs(card, size):
     for name, ms, n in prof.kernels[:8]:
         log(f"    {ms / prof.device_ms:.3f} {ms / prof.samples:.3f} "
             f"ms/sample {n // prof.samples}/sample {name[:90]}")
-    return totals, samples
+    return totals, notes
 
 
 def main_path(renderer, card, label, size):
-    """Time the renderer's main path and check its image; returns (bench,
-    samples).  The launch counts cover the timed run only; a profiled
-    window of 2 more samples follows (where the device time goes)."""
+    """Time the renderer's main path (``TIMED_SAMPLES`` steps of its batch
+    after one warm-up step) and check its image; returns (bench, samples,
+    the run's launch counts, one sample's launch counts, what the run's
+    counts hold).  The run's counts are the wrapper calls of the warm-up
+    and timed steps: the renderer's eager warm-up sample and the samples
+    of the graph it captures (a replay launches the captured kernels
+    without the wrappers), checked against one eager sample's
+    (:func:`graphed_run`).  A profiled replay of that graph follows (where
+    the device time goes), which must run each kernel as often as an
+    eager sample (:func:`checked_profile`)."""
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-    from metal_raytracing_tpu_torch.utils.metrics import (benchmark_renderer,
-                                                          profile_renderer)
+    from metal_raytracing_tpu_torch.utils.metrics import benchmark_renderer
 
     assert renderer.tracer == "cuda", renderer.tracer
+    assert renderer.graphed
     TC.reset_launch_counts()
     bench = benchmark_renderer(renderer, samples=TIMED_SAMPLES, warmup=1)
     img = renderer.image
@@ -1114,7 +1149,12 @@ def main_path(renderer, card, label, size):
         f"{bench.warmup_seconds:.2f} s, on {card}")
     samples = renderer.total_samples
     counts = launch_counts()
-    prof = profile_renderer(renderer, 2)
+    per, note = graphed_run(label, renderer, counts)
+    log(f"  one sample's launches (eager): "
+        f"{ {k: v for k, v in per.items() if v} }; the run's ({note}): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    prof = checked_profile(label, renderer, renderer.samples_per_dispatch,
+                           per)
     busy = prof.device_ms_per_sample / (bench.per_sample_seconds * 1e3)
     log(f"  profiled 2 samples: device {prof.device_ms_per_sample:.3f} "
         f"ms/sample in {prof.launches // prof.samples} kernels/sample; busy "
@@ -1122,7 +1162,82 @@ def main_path(renderer, card, label, size):
     for name, ms, n in prof.kernels[:6]:
         log(f"    {ms / prof.device_ms:.3f} {ms / prof.samples:.3f} "
             f"ms/sample {n // prof.samples}/sample {name[:90]}")
-    return bench, samples, counts
+    return bench, samples, counts, per, note
+
+
+def sample_launches(r):
+    """Each kernel wrapper's launches in one sample of renderer ``r``'s
+    config, from one eager sample through ``render_sample``, not folded
+    into ``r``: the wrappers count a graph's launches once, at its
+    capture, and a replay's not at all."""
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.renderer import render_sample
+
+    TC.reset_launch_counts()
+    render_sample(r.data, r.spec, r.cfg, r.offsets, r.frame_index, r.tracer,
+                  baked_tables=r.baked)
+    return launch_counts()
+
+
+# the launch counters of each kernel (``launch_counts``' keys; a kernel's
+# forms sum to its launches)
+KERNEL_COUNTERS = {
+    "closest_flat_kernel": ("closest_flat",),
+    "any_flat_kernel": ("any_flat",),
+    "closest_hier_kernel": ("closest_hier", "closest_hier_baked"),
+    "any_hier_kernel": ("any_hier",),
+    "broadphase_kernel": ("broadphase",),
+    "closest_rank_kernel": ("closest_rank",),
+    "closest_bvh_kernel": ("closest_bvh",),
+    "any_bvh_kernel": ("any_bvh",),
+}
+
+
+def graphed_run(label, r, counts):
+    """Check the launch counts of a graphed renderer's run that began with
+    no graph: its warm-up sample and the samples its graphs captured, each
+    with one eager sample's launches (a replay passes through no
+    wrapper), so a kernel missing from a captured graph fails here.
+    Returns (one sample's counts, what the run's counts hold)."""
+    per = sample_launches(r)
+    captured = sum(r.graphs)
+    want = {k: (1 + captured) * v for k, v in per.items()}
+    assert r.graphed and counts == want, (label, counts, want)
+    return per, f"warm-up sample + capture of {captured} samples"
+
+
+PROFILE_TRIES = 3  # profiled windows checked_profile may take
+
+
+def checked_profile(label, r, k, per, steps=1):
+    """``profile_renderer(r, k, steps)`` (on a graphed renderer, replays of
+    its graph of ``k`` samples), checked: the window must hold each
+    kernel's records as often a sample as one eager sample (``per``)
+    launches it.  More records fail at once.  Fewer are the profiler's
+    loss, not the card's: the captures hold every launch
+    (:func:`graphed_run`) and the graphed images equal the eager ones, but
+    a full run has seen a replay of ``bake_primary``'s graph record 5 of
+    its 6 ``any_hier_kernel`` launches, which also lowers the window's
+    device time.  Such a window is discarded, logged and taken again, up to
+    ``PROFILE_TRIES`` windows."""
+    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
+
+    for _ in range(PROFILE_TRIES):
+        prof = profile_renderer(r, k, steps)
+        short = {}
+        for kernel, keys in KERNEL_COUNTERS.items():
+            want = sum(per[c] for c in keys) * prof.samples
+            got = sum(n for name, _, n in prof.kernels if kernel in name)
+            assert got <= want, (label, kernel, got, want)
+            if got < want:
+                short[kernel] = (got, want)
+        if not short:
+            return prof
+        log(f"    {label}: a profiled window discarded, it holds fewer "
+            f"kernel records than launches (recorded, launched): {short}, "
+            f"device {prof.device_ms_per_sample:.3f} ms/sample")
+    raise AssertionError((label, "the profiler lost records in every "
+                          "window", short))
 
 
 def launch_counts():
@@ -1178,8 +1293,9 @@ def cli_config(name, size):
 
 
 def extension_scenes(card):
-    """Phase 14; returns the K1/K2 launches of the extension scenes' timed
-    runs with their extensions on, and the samples of those runs."""
+    """Phase 14; returns the K1/K2 launches of the extension scenes' runs
+    with their extensions on (the warm-up renders capture the graphs that
+    the timed renders replay)."""
     import dataclasses
 
     import torch
@@ -1188,7 +1304,6 @@ def extension_scenes(card):
     from metal_raytracing_tpu_torch.io.image import rmse
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
     from metal_raytracing_tpu_torch.renderer import Renderer
-    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
 
     # The walking plain versions visit the clusters in the kernels' order,
     # so the kernels' passes and image equal theirs bit for bit.  The
@@ -1237,52 +1352,49 @@ def extension_scenes(card):
     assert err < SAME_IMAGE_RMSE, err
 
     launches = {"K1": 0, "K2": 0}
-    samples = 0
+    counts = {}
     log(f"  each scene at its default size, extensions off / on in turns, "
         f"{EXTENSION_ROUNDS} rounds of {ROUND_SAMPLES} samples, on {card}:")
     for name, size in EXTENSION_SCENES:
         scene, cfg, off = cli_config(name, size)
         rs = {"off": Renderer(scene, off, device="cuda"),
               "on": Renderer(scene, cfg, device="cuda")}
-        for r in rs.values():  # warm-up
-            r.render(1)
+        for k, r in rs.items():
+            # warm-up: the timed renders' steps, so their graphs are captured
+            TC.reset_launch_counts()
+            r.render(ROUND_SAMPLES)
+            counts[k] = launch_counts()
+            if k == "on":
+                launches["K1"] += counts[k]["closest_flat"]
+                launches["K2"] += counts[k]["any_flat"]
         ms = {k: [] for k in rs}
-        counts = {}
         for _ in range(EXTENSION_ROUNDS):
             for k, r in rs.items():
-                TC.reset_launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 r.render(ROUND_SAMPLES)
                 torch.cuda.synchronize()
                 ms[k].append((time.perf_counter() - t0) / ROUND_SAMPLES * 1e3)
-                counts[k] = launch_counts()
-                if k == "on":
-                    launches["K1"] += counts[k]["closest_flat"]
-                    launches["K2"] += counts[k]["any_flat"]
-                    samples += ROUND_SAMPLES
         for k, r in rs.items():
             img = r.image
             assert img.shape == (size[1], size[0], 3), img.shape
             assert bool(np.isfinite(img).all()) and float(img.min()) >= 0.0
             assert float(img.max()) > 0.01, (name, k)
-            c = counts[k]
-            assert c["closest_flat"] >= 3 * ROUND_SAMPLES, (name, k, c)
-            assert c["any_flat"] >= 3 * ROUND_SAMPLES, (name, k, c)
-            prof = profile_renderer(r, 2)
+            c, _ = graphed_run(f"{name} {k}", r, counts[k])
+            assert c["closest_flat"] >= 3 and c["any_flat"] >= 3, (name, k, c)
+            prof = checked_profile(f"{name} {k}", r, max(r.graphs), c)
             dev = prof.device_ms_per_sample
             log(f"    {name} {size[0]}x{size[1]} {k}: "
                 + " / ".join(f"{m:.3f}" for m in ms[k])
                 + f" ms/sample (median {statistics.median(ms[k]):.3f}); K1 "
-                f"{c['closest_flat'] / ROUND_SAMPLES:.0f} K2 "
-                f"{c['any_flat'] / ROUND_SAMPLES:.0f} launches/sample; "
+                f"{c['closest_flat']} K2 {c['any_flat']} launches/sample; "
                 f"device {dev:.3f} ms/sample in "
                 f"{prof.launches // prof.samples} kernels/sample; idle "
                 f"{1 - dev / statistics.median(ms[k]):.3f} of the median "
                 f"round, {1 - dev / min(ms[k]):.3f} of the fastest")
         del rs
         torch.cuda.empty_cache()
-    return launches, samples
+    return launches
 
 
 def bvh_work(o, d, mask, data, spec, t_final=None, max_t=None, occ=None):
@@ -1604,8 +1716,8 @@ def bvh_main_path(card, size):
     """Phase 15 (b): the JAX CLI's GPU path, dragon with ``tracer="bvh"``
     under ``compaction=True`` and ``False`` beside ``tracer="cuda"``, in
     turns; each bvh image against the cuda image at the golden gate.
-    Returns the BVH kernels' launches over the bvh configs' timed runs and
-    the samples of those runs."""
+    Returns the BVH kernels' launches over the bvh configs' runs (the
+    warm-up renders capture the graphs that the timed renders replay)."""
     import torch
 
     from metal_raytracing_tpu_torch.io.image import rmse
@@ -1613,38 +1725,43 @@ def bvh_main_path(card, size):
     from metal_raytracing_tpu_torch.renderer import Renderer
     from metal_raytracing_tpu_torch.scenes import get_scene
     from metal_raytracing_tpu_torch.types import RenderConfig
-    from metal_raytracing_tpu_torch.utils.metrics import profile_renderer
 
     w, h = size
     scene = get_scene("dragon", w, h)
     rs = [Renderer(scene, RenderConfig(width=w, height=h, **kw),
                    device="cuda") for _, kw in BVH_CONFIGS]
-    for r in rs:  # warm-up: one sample each
-        r.render(1)
+    launches = {"closest_bvh": 0, "any_bvh": 0}
+    runs = []
+    for r in rs:
+        # warm-up: the timed renders' steps, so their graphs are captured
+        TC.reset_launch_counts()
+        r.render(ROUND_SAMPLES)
+        runs.append(launch_counts())
+        if r.tracer == "bvh":
+            for k in launches:
+                launches[k] += runs[-1][k]
     torch.cuda.synchronize()
     ms = {label: [] for label, _ in BVH_CONFIGS}
-    launches = {"closest_bvh": 0, "any_bvh": 0}
-    samples = 0
     for _ in range(ROUNDS):
         for (label, _), r in zip(BVH_CONFIGS, rs):
-            TC.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render(ROUND_SAMPLES)
             torch.cuda.synchronize()
             ms[label].append((time.perf_counter() - t0) / ROUND_SAMPLES * 1e3)
-            counts = launch_counts()
-            cluster = sum(v for k, v in counts.items() if not k.endswith(
-                "_bvh"))
-            if r.tracer == "bvh":
-                for k in launches:
-                    assert counts[k] == 3 * ROUND_SAMPLES, (label, counts)
-                    launches[k] += counts[k]
-                assert cluster == 0, (label, counts)
-                samples += ROUND_SAMPLES
-            else:
-                assert counts["closest_bvh"] == counts["any_bvh"] == 0
-                assert counts["closest_hier"] == 3 * ROUND_SAMPLES, counts
+    pers, notes = [], []
+    for (label, _), r, run in zip(BVH_CONFIGS, rs, runs):
+        counts, note = graphed_run(label, r, run)
+        pers.append(counts)
+        if r.tracer == "bvh":
+            notes.append(note)
+        cluster = sum(v for k, v in counts.items() if not k.endswith("_bvh"))
+        if r.tracer == "bvh":
+            assert counts["closest_bvh"] == counts["any_bvh"] == 3, counts
+            assert cluster == 0, (label, counts)
+        else:
+            assert counts["closest_bvh"] == counts["any_bvh"] == 0
+            assert counts["closest_hier"] == 3, counts
     # The two bvh configs trace each ray alike (the kernels walk per ray),
     # so their images agree at the golden gate.  Against the cuda image
     # only the rays whose two winners tie differ (phase 15 (a): the floor
@@ -1654,7 +1771,7 @@ def bvh_main_path(card, size):
     # and the pixels beyond the golden max stay under 0.1%.
     ref = rs[0].image
     bvh_ref = rs[1].image
-    for (label, _), r in zip(BVH_CONFIGS, rs):
+    for (label, _), r, per in zip(BVH_CONFIGS, rs, pers):
         img = r.image
         assert img.shape == (h, w, 3) and bool(np.isfinite(img).all())
         assert float(img.min()) >= 0.0 and float(img.max()) > 0.01
@@ -1663,7 +1780,7 @@ def bvh_main_path(card, size):
         over = float((np.abs(img - ref).max(axis=-1) >= GOLDEN_MAX).mean())
         b_err = rmse(img, bvh_ref)
         b_worst = float(np.abs(img - bvh_ref).max())
-        prof = profile_renderer(r, 2)
+        prof = checked_profile(label, r, max(r.graphs), per)
         dev = prof.device_ms_per_sample
         kern = {k: v / prof.samples for name, v, _ in prof.kernels
                 for k in ("closest_bvh_kernel", "any_bvh_kernel",
@@ -1674,7 +1791,8 @@ def bvh_main_path(card, size):
             f"ms/sample ({prof.launches // prof.samples} kernels/sample; "
             + ", ".join(f"{k} {v:.3f}" for k, v in kern.items())
             + f" ms/sample); idle {1 - dev / min(ms[label]):.3f} of the "
-            f"fastest round; after {r.total_samples - 2} samples: image vs "
+            f"fastest round; after {r.total_samples - prof.samples} samples: "
+            f"image vs "
             f"cuda RMSE {err:.3e} (gate < {IMAGE_RMSE}), max {worst:.3e}, "
             f"{over:.2e} of the pixels >= {GOLDEN_MAX} (gate < "
             f"{1 - MIN_MATCH:.0e}); vs bvh compaction=True RMSE "
@@ -1685,7 +1803,7 @@ def bvh_main_path(card, size):
             assert b_err < IMAGE_RMSE and b_worst < GOLDEN_MAX, (label, b_err)
     del rs
     torch.cuda.empty_cache()
-    return launches, samples
+    return launches, "the bvh configs' runs, each " + " / ".join(notes)
 
 
 def bvh_cross_check(size):
@@ -1892,18 +2010,27 @@ def gate_image(label, img, ref, card, rmse_gate=IMAGE_RMSE):
 
 
 def with_config(renderer, **kw):
-    """A renderer over the same build with other config fields."""
+    """A renderer over the same build with other config fields, and with
+    state and CUDA graphs of its own (a graph reads and writes its
+    renderer's state in place)."""
+    from metal_raytracing_tpu_torch.renderer import graphs_apply
+
     r = copy.copy(renderer)
     r.cfg = dataclasses.replace(renderer.cfg, **kw)
+    r.graphed = graphs_apply(r.cfg, r.device, r.tracer)
+    r.drop_graphs()
+    r.accum, r.ray_totals, r.frame = (
+        x.clone() for x in (r.accum, r.ray_totals, r.frame))
     r.reset()
     return r
 
 
 def builders(card):
     """Phase 16: the cluster builders and the traversal telemetry.  Returns
-    (launches of K3/K4 on dragon's ploc build over its timed rounds, the
-    kernels line's wide rows, each K's option ms on dragon's sah_free
-    primary pass, K6's option ms)."""
+    (the kernels line's wide rows, with K3/K4's launches in the ploc
+    build's render of ``BUILD_SAMPLES`` samples: its warm-up sample and
+    the captures of its graphs; each K's option ms on dragon's sah_free
+    primary pass; K6's option ms)."""
     import torch
 
     from metal_raytracing_tpu_torch import renderer as R
@@ -1946,13 +2073,16 @@ def builders(card):
                     k.replace(" ", f" {pre}", 1): v for k, v in ms.items()})
             log(f"    primary-pass ms: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in ms.items()))
-            img = r.render(BUILD_SAMPLES)
+            TC.reset_launch_counts()
+            img = r.render(BUILD_SAMPLES)  # captures the build's graphs
             if ref is None:
                 ref = img
             else:
                 gate_image(f"{name} {label} vs sah_free", img, ref, card)
             if name == "dragon" and label == "ploc":
                 ploc_calls = calls
+                ploc_counts = launch_counts()
+                _, ploc_note = graphed_run("dragon ploc", r, ploc_counts)
             del calls
             if name == "dragon":
                 kept[label] = r
@@ -2075,27 +2205,23 @@ def builders(card):
         (f"{label} chunk_skip", with_config(kept[label], chunk_skip=True))
         for label in ("sah_chunk", "ploc")]
     for _, r in runs:
-        r.render(1)  # warm-up
+        # warm-up: captures the graphs that the timed renders replay
+        r.render(ROUND_SAMPLES)
     torch.cuda.synchronize()
     ms = {label: [] for label, _ in runs}
-    per = {}
-    ploc_counts = {}
     for _ in range(ROUNDS):
         for label, r in runs:
-            TC.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render(ROUND_SAMPLES)
             torch.cuda.synchronize()
             ms[label].append((time.perf_counter() - t0) / ROUND_SAMPLES * 1e3)
-            counts = launch_counts()
-            per[label] = {k: v / ROUND_SAMPLES for k, v in counts.items()
-                          if v}
-            assert counts["closest_hier"] == 3 * ROUND_SAMPLES, (label, counts)
-            assert counts["any_hier"] == 3 * ROUND_SAMPLES, (label, counts)
-            if label == "ploc":
-                ploc_counts = {k: v + ploc_counts.get(k, 0)
-                               for k, v in counts.items()}
+    per = {}
+    for label, r in runs:
+        counts = sample_launches(r)  # one eager sample
+        per[label] = {k: v for k, v in counts.items() if v}
+        assert counts["closest_hier"] == counts["any_hier"] == 3, \
+            (label, counts)
     for label, r in runs:
         prof = profile_renderer(r, 2)
         dev = prof.device_ms_per_sample
@@ -2109,6 +2235,8 @@ def builders(card):
             + f" ms/sample); idle {1 - dev / min(ms[label]):.3f} of the "
             f"fastest round; launches/sample {per[label]}; on {card}")
     wide = wide_kernel_rows(ploc_calls, ploc.data, ploc.spec, ploc_counts)
+    for row in wide.values():
+        row["launches_of"] = f"the ploc build's run: {ploc_note}"
     del kept, runs, base, ploc, ploc_calls
     torch.cuda.empty_cache()
     return wide, option_ms, k6_ms
@@ -2246,19 +2374,20 @@ def bake_phase(card):
         f"{', '.join(f'{t:.3f}' for t in turns)} ms; baked bound "
         f"{bnd[0]:.4f} ms ({bnd[1]}), unbaked {bnd_u[0]:.4f} ms; on {card}")
     # the main path, then the same build unbaked (config A), same samples
-    _, samples, counts = main_path(r, card, "dragon bake_primary=True",
-                                   DRAGON)
-    log(f"  launches over {samples} samples: {counts}")
-    assert counts["closest_hier_baked"] == samples, counts
-    assert counts["closest_hier"] == 2 * samples, counts
+    _, samples, counts, per, note = main_path(
+        r, card, "dragon bake_primary=True", DRAGON)
+    assert counts["closest_hier_baked"] > 0, counts
+    assert per["closest_hier_baked"] == 1, per
+    assert per["closest_hier"] == 2, per
     img = r.image
     a = with_config(r, bake_primary=False)
-    a.step(samples + 2)  # as many samples as the baked image holds
+    a.render(samples + 2)  # as many samples as the baked image holds
     gate_image("bake_primary vs A", img, a.image, card)
     return {"name": "closest_hier_kernel baked", "route": "cuda",
             "source": CSRC + "trace_hier.cu",
             "replaces": f"{PALLAS}:1139", "form": "baked=True",
-            "launches": counts["closest_hier_baked"], "max_abs_err": 0.0,
+            "launches": counts["closest_hier_baked"],
+            "launches_of": f"the main path's run: {note}", "max_abs_err": 0.0,
             "ms": (turns[1] + turns[2]) / 2, "plain_ms": walk_ms,
             "plain_kind": "walking", "unbaked_ms": (turns[0] + turns[3]) / 2,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": LIBRARY}
@@ -2322,7 +2451,9 @@ def _shard_rank(rank, world, init, out, backend):
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
             if r is not None:
-                r.step(1 if tag == "warm" else SHARD_TIMED)
+                # the solo renderer's warm-up takes the timed steps' size,
+                # so that its graph is captured before the timed turns
+                r.step(SHARD_TIMED if tag != "warm" or r is solo else 1)
                 torch.cuda.synchronize(device)
             dist.barrier()
             wall = time.perf_counter() - t0
@@ -2457,15 +2588,14 @@ def sort_layouts_phase(card):
     ref = a.image
     for label, kw in SORT_LAYOUTS:
         r = with_config(a, compaction=True, **kw)
-        r.step(1)  # warm-up, not in the image
-        img_r = with_config(a, compaction=True, **kw)
+        r.graph(SORT_SAMPLES)  # warm-up and capture, not in the image
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img_r.step(SORT_SAMPLES)
+        r.step(SORT_SAMPLES)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / SORT_SAMPLES * 1e3
-        img = img_r.image
-        prof = profile_renderer(r, 1)
+        img = r.image
+        prof = profile_renderer(r, SORT_SAMPLES)
         err = rmse(img, ref)
         gate = IMAGE_RMSE if kw.get("sort_pack_f16") else SAME_IMAGE_RMSE
         log(f"  {label}: RMSE vs A {err:.3e} (gate < {gate}), "
@@ -2474,6 +2604,266 @@ def sort_layouts_phase(card):
         assert np.isfinite(img).all() and err < gate, (label, err)
         if kw.get("sort_pack_f16"):
             gate_image(label, img, ref, card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: samples_per_dispatch as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (label, scene, size, config keywords): each graphed renderer against an
+# eager twin over the same build
+DISPATCH_CONFIGS = (
+    ("dragon A", "dragon", DRAGON, {}),
+    ("dragon bake_primary", "dragon", DRAGON, dict(bake_primary=True)),
+    ("dragon D", "dragon", DRAGON, dict(compaction=True,
+                                        fused_broadphase=True)),
+    ("dragon bvh", "dragon", DRAGON, dict(tracer="bvh")),
+    ("coatball", "coatball", COATBALL, {}),
+    ("plane_sphere", "plane_sphere", (256, 256), {}),
+)
+# graphed against eager without the timing: the brute force's chunk loops
+# put ~4,800 kernels in a 64x64 sample (~24,000 at 256x256), which the
+# profiler takes minutes over
+DISPATCH_UNTIMED = (
+    ("plane_sphere bruteforce", "plane_sphere", (64, 64),
+     dict(tracer="bruteforce")),
+)
+DISPATCH_ROUNDS = 3
+DISPATCH_STEPS = 2  # steps of the renderer's batch a timed turn
+DISPATCH_KS = (1, 2, 4)  # graph batches timed in turns (dragon A, coatball)
+DISPATCH_K_SAMPLES = 4  # samples a turn of the batch sweep
+DISPATCH_PROFILE_STEPS = 2  # steps of the batch a profiled window
+
+
+def timed_steps(r, steps, k):
+    """Wall ms a sample of ``steps`` steps of ``k`` samples, fenced."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        r.step(k)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (steps * k) * 1e3
+
+
+def capture(r, k):
+    """(seconds, reserved bytes gained) of capturing ``r``'s graph of ``k``
+    samples (with the warm-up sample where it is the pool's first)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    r.graph(k)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.memory_reserved() - before
+
+
+def dispatch_config(card, label, name, size, kw, timed=True):
+    """One config of phase 20: the graphed renderer against its eager
+    twin (without ``timed``, only the sync check, the capture and the
+    image).  Returns the graphed path's launch counts (the capture)."""
+    import torch
+
+    from metal_raytracing_tpu_torch import renderer as R
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    w, h = size
+    g = R.Renderer(get_scene(name, w, h),
+                   RenderConfig(width=w, height=h, **kw), device="cuda")
+    e = with_config(g)  # the same build, eager
+    e.graphed = False
+    assert g.graphed, label
+    k = g.samples_per_dispatch
+    TC.reset_launch_counts()  # the graphed path's run starts here
+    cap_s, pool = capture(g, k)
+    captured = launch_counts()
+    # no host sync in a sample: one eager sample, not folded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        R.render_sample(g.data, g.spec, g.cfg, g.offsets, g.frame, g.tracer,
+                        baked_tables=g.baked)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    per = sample_launches(g)
+    # the capture holds k samples' launches, the warm-up sample one more
+    assert captured == {key: (k + 1) * v for key, v in per.items()}, \
+        (label, captured, per)
+    e.step()
+    g.step()
+    if not timed:
+        same = bool(torch.equal(g.accum, e.accum))
+        log(f"  {label} {w}x{h}, batch {k}: no host sync in a sample; image "
+            f"after {g.total_samples} samples graph == eager: {same}; first "
+            f"capture {cap_s:.3f} s, pool {pool / 2**20:.1f} MiB; on {card}")
+        assert same, label
+        return captured
+    ms = {"graph": [], "eager": []}
+    for i in range(DISPATCH_ROUNDS):
+        for mode in ("graph", "eager") if i % 2 == 0 else ("eager", "graph"):
+            ms[mode].append(timed_steps(g if mode == "graph" else e,
+                                        DISPATCH_STEPS, k))
+    profs = [(mode, checked_profile(f"{label} {mode}", r, k, per,
+                                    DISPATCH_PROFILE_STEPS))
+             for mode, r in (("graph", g), ("eager", e))]
+    same = (bool(torch.equal(g.accum, e.accum))
+            and bool(torch.equal(g.ray_totals, e.ray_totals))
+            and g.total_samples == e.total_samples)
+    # the graph's device time read again after the eager reading, and as
+    # the wall of back-to-back graph turns
+    profs.append(("graph", checked_profile(f"{label} graph", g, k, per,
+                                           DISPATCH_PROFILE_STEPS)))
+    b2b = [timed_steps(g, DISPATCH_STEPS, k) for _ in range(2)]
+    prof = dict(profs[:2])
+    names = {mode: sorted(n for n, _, _ in p.kernels)
+             for mode, p in prof.items()}
+    img = g.image
+    assert img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+    assert float(img.max()) > 0.01, label
+    diff = sorted(set(names["graph"]) ^ set(names["eager"]))
+    log(f"  {label} {w}x{h}, batch {k}: image after {e.total_samples} "
+        f"samples graph == eager: {same}; the profiles' kernels by name "
+        f"equal: {not diff} {[n[:80] for n in diff[:4]]}; first capture "
+        f"{cap_s:.3f} s (warm-up sample + capture), pool {pool / 2**20:.1f} "
+        f"MiB; one sample's launches {sum(per.values())} through the "
+        f"wrappers {({n: v for n, v in per.items() if v})}; on {card}")
+    for mode in ("graph", "eager"):
+        p = prof[mode]
+        dev = p.device_ms_per_sample
+        log(f"    {mode}: " + " / ".join(f"{x:.3f}" for x in ms[mode])
+            + f" ms/sample (median {statistics.median(ms[mode]):.3f}); "
+            f"device {dev:.3f} ms/sample in {p.launches / p.samples:.0f} "
+            f"kernels/sample; idle {1 - dev / statistics.median(ms[mode]):.3f}"
+            f" of the median; host launch calls "
+            f"{p.launch_calls / p.samples:.2f} a sample")
+    by_kernel = [{n: t / p.samples for n, t, _ in p.kernels} for _, p in profs]
+    moved = sorted(by_kernel[0], key=lambda n: -abs(
+        by_kernel[0][n] - by_kernel[1].get(n, 0.0)))[:3]
+    log(f"    graph device ms/sample read twice: "
+        f"{profs[0][1].device_ms_per_sample:.3f} / "
+        f"{profs[2][1].device_ms_per_sample:.3f} ({DISPATCH_PROFILE_STEPS} "
+        f"profiled steps each); back-to-back graph turns " + " / ".join(
+            f"{x:.3f}" for x in b2b) + " ms/sample; the kernels whose "
+        "device time differs most, graph / eager / graph ms/sample: "
+        + "; ".join(f"{n[:60]} " + " / ".join(
+            f"{bk.get(n, 0.0):.4f}" for bk in by_kernel) for n in moved))
+    assert same, label
+    if label in ("dragon A", "coatball"):
+        caps = {kk: capture(g, kk) for kk in DISPATCH_KS}
+        sweep = {kk: [] for kk in DISPATCH_KS}
+        for i in range(DISPATCH_ROUNDS):
+            for kk in DISPATCH_KS[i % 3:] + DISPATCH_KS[:i % 3]:
+                sweep[kk].append(timed_steps(g, DISPATCH_K_SAMPLES // kk, kk))
+        log(f"    graph batches in turns: " + "; ".join(
+            f"k={kk} " + " / ".join(f"{x:.3f}" for x in sweep[kk])
+            + f" ms/sample (capture {caps[kk][0]:.3f} s, +"
+            f"{caps[kk][1] / 2**20:.1f} MiB)" for kk in DISPATCH_KS))
+    return captured
+
+
+def dispatch_phase(card):
+    """Phase 20: ``samples_per_dispatch`` as CUDA graphs.  Each config of
+    ``DISPATCH_CONFIGS`` graphed against its eager twin (the same build):
+    one eager sample under ``torch.cuda.set_sync_debug_mode("error")``,
+    the capture's launch counts against an eager sample's, ms/sample in
+    turns, device ms/sample and kernels by name from the profiler (a replay
+    shows its kernels as an eager step does), host launch calls a sample,
+    capture seconds and pool bytes, and the images equal bit for bit; on
+    dragon A and coatball the graph batches 1, 2 and 4 in turns; each of
+    ``DISPATCH_UNTIMED`` with the sync check, the capture and the image
+    alone.  Then ``refine`` between two batches against the eager renderer with the
+    same refine, a mid-render checkpoint resumed in a fresh renderer
+    against a straight render, and the CLI's ``render --spp 6
+    --save-every 4`` saving at samples 4 and 6.  Returns dragon A's launch
+    counts (its capture: the graphed path's run)."""
+    import os
+
+    import torch
+
+    from metal_raytracing_tpu_torch import cli
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    counts = {}
+    for label, name, size, kw in DISPATCH_CONFIGS:
+        counts[label] = dispatch_config(card, label, name, size, kw)
+        torch.cuda.empty_cache()
+    for label, name, size, kw in DISPATCH_UNTIMED:
+        dispatch_config(card, label, name, size, kw, timed=False)
+        torch.cuda.empty_cache()
+
+    # a mid-render checkpoint, resumed in a fresh renderer (the same build)
+    w, h = COATBALL
+    g = Renderer(get_scene("coatball", w, h),
+                 RenderConfig(width=w, height=h), device="cuda")
+    os.makedirs("build/phase20", exist_ok=True)
+    straight = with_config(g)
+    straight.render(6)
+    mid = with_config(g)
+    mid.render(3)
+    mid.save("build/phase20/mid.npz")
+    fresh = Renderer(get_scene("coatball", w, h),
+                     RenderConfig(width=w, height=h), device="cuda")
+    fresh.load("build/phase20/mid.npz")
+    fresh.render(3)
+    same = bool(torch.equal(fresh.accum, straight.accum))
+    log(f"  coatball 3 samples, checkpoint, 3 more in a fresh renderer == "
+        f"6 straight: {same}")
+    assert same and fresh.total_samples == 6
+    # refine() between two batches: the graphs are dropped and recaptured
+    e = with_config(g)
+    e.graphed = False
+    k = g.samples_per_dispatch
+    g.step()
+    old = g.graphs[k]
+    for r in (g, e):
+        if r is e:
+            r.step()
+        assert r.refine()
+        r.step()
+    recaptured = list(g.graphs) == [k] and g.graphs[k] is not old
+    same = bool(torch.equal(g.accum, e.accum))
+    log(f"  coatball step, refine, step: graph recaptured {recaptured}, "
+        f"image graph == eager: {same}")
+    assert recaptured and same
+    del g, e, straight, mid, fresh
+    torch.cuda.empty_cache()
+
+    # the CLI: --spp 6 --save-every 4 saves at samples 4 and 6
+    saves = []
+    save = Renderer.save
+
+    def recording_save(self, path):
+        saves.append(self.total_samples)
+        save(self, path)
+
+    argv = ["render", "--spp", "6", "--save-every", "4", "--checkpoint",
+            "build/phase20/cli.npz", "--out", "build/phase20/cli.png",
+            "--quiet"]
+    Renderer.save = recording_save
+    try:
+        assert cli.main(argv) == 0
+    finally:
+        Renderer.save = save
+    args = cli.build_parser().parse_args(argv)
+    scene = get_scene(args.scene, *args.size)
+    ref = Renderer(scene, cli.render_config(args, scene, spp=6),
+                   device="cuda")
+    ref.render(6)
+    ck = Renderer(scene, ref.cfg, device="cuda")
+    ck.load("build/phase20/cli.npz")
+    same = bool(torch.equal(ck.accum, ref.accum))
+    log(f"  CLI render --spp 6 --save-every 4 ({args.scene} "
+        f"{args.size[0]}x{args.size[1]}, batch {ref.samples_per_dispatch}):"
+        f" checkpoints at samples {saves}, the last == a straight render of "
+        f"6: {same}")
+    assert saves == [4, 6] and same and ck.total_samples == 6, saves
+    return counts["dragon A"]
 
 
 def main() -> int:
@@ -2551,11 +2941,13 @@ def main() -> int:
     log("phase 3: coatball main path")
     renderer = Renderer(get_scene("coatball", w, h),
                         RenderConfig(width=w, height=h), device="cuda")
-    _, samples, counts = main_path(renderer, card, "coatball", COATBALL)
+    _, samples, counts, per, note = main_path(renderer, card, "coatball",
+                                              COATBALL)
     launches = {"K1": counts["closest_flat"], "K2": counts["any_flat"]}
-    log(f"  launches over {samples} samples: {counts}")
-    for k in ("K1", "K2"):
-        assert launches[k] >= 3 * samples, (k, launches[k], samples)
+    # what each kernel's launches in the kernels line hold
+    launches_of = {"K1": note, "K2": note}
+    for k, name in (("K1", "closest_flat"), ("K2", "any_flat")):
+        assert launches[k] > 0 and per[name] >= 3, (k, counts, per)
     del renderer
 
     # ---- phase 4: coatball image through the kernels vs the plain versions
@@ -2622,18 +3014,19 @@ def main() -> int:
         r = Renderer(get_scene("dragon", w, h),
                      RenderConfig(width=w, height=h, fused_broadphase=fused),
                      device="cuda")
-        _, samples, counts = main_path(
+        _, samples, counts, per, note = main_path(
             r, card, "dragon fused_broadphase=True" if fused else "dragon",
             DRAGON)
-        log(f"  launches over {samples} samples: {counts}")
         for k in ("closest_hier", "any_hier") + (
                 ("broadphase",) if fused else ()):
-            assert counts[k] >= 3 * samples, (k, counts[k], samples)
+            assert counts[k] > 0 and per[k] >= 3, (k, counts, per)
         if fused:
             launches["K5"] = counts["broadphase"]
+            launches_of["K5"] = note
         else:
             launches["K3"] = counts["closest_hier"]
             launches["K4"] = counts["any_hier"]
+            launches_of["K3"] = launches_of["K4"] = note
         del r
 
     # ---- phase 8: dragon image through the kernels vs the plain versions
@@ -2703,14 +3096,16 @@ def main() -> int:
     # ---- phase 12: four configs in turns
     log(f"phase 12: dragon main path, four configs in turns, {ROUNDS} rounds "
         f"of {ROUND_SAMPLES} samples")
-    totals, samples = four_configs(card, DRAGON)
+    totals, notes = four_configs(card, DRAGON)
     slice_counts, fused_counts = totals[CONFIGS[2][0]], totals[CONFIGS[3][0]]
-    log(f"  slice launches over {samples} samples: {slice_counts}; "
-        f"{CONFIGS[3][0]}: {fused_counts}")
+    log(f"  the runs' launches (warm-up samples and captures): slice "
+        f"{slice_counts}; {CONFIGS[3][0]}: {fused_counts}")
     launches["K6"] = slice_counts["closest_rank"]
-    assert launches["K6"] >= 2 * samples
+    assert launches["K6"] > 0
     # K5's cluster sweep runs under compaction with fused_broadphase=True
     launches["K5 keys"] = fused_counts["broadphase_clusters"]
+    launches_of["K6"] = notes[CONFIGS[2][0]]
+    launches_of["K5 keys"] = notes[CONFIGS[3][0]]
 
     # ---- phase 13: the slice's image through the kernels vs plain versions
     log("phase 13: dragon cross-check, compaction=True rank_trace=2")
@@ -2719,9 +3114,9 @@ def main() -> int:
     # ---- phase 14: the shading extensions through K1/K2
     log("phase 14: the shading extensions (coatball, bunny_env, "
         "glass_sphere, uv_test) through K1/K2")
-    ext_launches, ext_samples = extension_scenes(card)
-    log(f"  K1/K2 launches with the extensions on over {ext_samples} "
-        f"samples: {ext_launches}")
+    ext_launches = extension_scenes(card)
+    log(f"  K1/K2 launches of the runs with the extensions on: "
+        f"{ext_launches}")
 
     # ---- phase 15: the exact BVH tracers' kernels
     t15 = time.perf_counter()
@@ -2730,8 +3125,8 @@ def main() -> int:
     bvh = bvh_kernels()
     log("  the JAX CLI's GPU path (tracer=bvh), dragon, configs in turns, "
         f"{ROUNDS} rounds of {ROUND_SAMPLES} samples:")
-    bvh_launches, bvh_samples = bvh_main_path(card, DRAGON)
-    log(f"  BVH kernel launches over {bvh_samples} samples: {bvh_launches}")
+    bvh_launches, bvh_note = bvh_main_path(card, DRAGON)
+    log(f"  BVH kernel launches of the bvh runs: {bvh_launches}")
     bvh_cross_check((128, 128))
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
@@ -2765,6 +3160,16 @@ def main() -> int:
     sort_layouts_phase(card)
     log(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
+    # ---- phase 20: samples_per_dispatch as CUDA graphs
+    t20 = time.perf_counter()
+    log("phase 20: samples_per_dispatch, a batch of samples as one CUDA "
+        "graph replay, against the eager renderer")
+    graphed = dispatch_phase(card)
+    log(f"  dragon A's graphed run (warm-up sample and capture): "
+        f"{ {k: v for k, v in graphed.items() if v} }")
+    assert graphed["closest_hier"] > 0 and graphed["any_hier"] > 0, graphed
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s")
+
     kernels = []
     modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries
     for key, name, src, line, first in (
@@ -2784,6 +3189,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": f"{PALLAS}:{line}", "launches": launches[key],
+            "launches_of": f"the main path's run: {launches_of[key]}",
             "max_abs_err": max(errs), "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
             "bound_by": first["bound"][1], "library_ms": LIBRARY})
@@ -2810,6 +3216,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": CSRC + "trace_bvh.cu",
             "replaces": f"{TRACE_PY}:{line}", "pallas_counterpart": None,
             "launches": bvh_launches[f"{query}_bvh"],
+            "launches_of": bvh_note,
             "max_abs_err": max(r["err"] for r in bvh[query]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "plain_rays": first["plain_rays"],
@@ -2822,6 +3229,7 @@ def main() -> int:
             "name": f"{name} wide", "route": "cuda",
             "source": CSRC + "trace_hier.cu",
             "replaces": f"{PALLAS}:{line}", "launches": r["launches"],
+            "launches_of": r["launches_of"],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "plain_rays": r["plain_rays"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

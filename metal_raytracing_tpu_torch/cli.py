@@ -18,7 +18,10 @@ and through their plain versions on one CUDA device and reports the RMSE
 between the two images; it refuses any other device.  ``--bvh-builder``
 picks the leaf clustering (the JAX CLI's choices), and ``--feedback N``
 rebuilds the clusters to the measured rays after N samples
-(``Renderer.refine``) and goes on: the same image.
+(``Renderer.refine``) and goes on: the same image.  ``render`` steps in the
+renderer's dispatch batches (``dispatch_span``), each one CUDA graph replay
+where the renderer runs graphs, landing on every ``--save-every`` boundary
+and on the ``--feedback`` sample.
 """
 
 from __future__ import annotations
@@ -147,6 +150,21 @@ def render_config(args, scene, **kw) -> RenderConfig:
         bvh_builder=args.bvh_builder, **kw)
 
 
+def dispatch_span(frame_index: int, samples_per_dispatch: int,
+                  spp: int, save_every: int | None) -> int:
+    """Samples for the next progressive step from ``frame_index``
+    (``metal_raytracing_tpu.cli.dispatch_span``).
+
+    The batch (``samples_per_dispatch``) must not overshoot the requested
+    ``spp`` (checkpoints count exact samples) and must land on every
+    ``--save-every`` boundary, not stride past it (a batch of 4 with
+    ``--save-every 2`` would otherwise never save)."""
+    k = min(samples_per_dispatch, spp - frame_index)
+    if save_every:
+        k = min(k, save_every - frame_index % save_every)
+    return k
+
+
 def cmd_render(args) -> int:
     width, height = args.size
     scene = get_scene(args.scene, width, height)
@@ -169,11 +187,19 @@ def cmd_render(args) -> int:
                   file=sys.stderr)
 
     tonemap = not args.no_tonemap
+    # Each progress print reads the ray counters, which waits for the
+    # device, so the prints are rate-limited as in the JAX package's CLI.
+    progress_every = max(1, args.spp // 16)
     t0 = time.perf_counter()
     rays0 = renderer.total_closest_rays + renderer.total_shadow_rays
     feedback_at = args.feedback if args.feedback > 0 else None
     while renderer.frame_index < args.spp:
-        renderer.step(1)
+        k = dispatch_span(renderer.frame_index,
+                          renderer.samples_per_dispatch, args.spp,
+                          args.save_every)
+        if feedback_at and renderer.frame_index < feedback_at:
+            k = min(k, feedback_at - renderer.frame_index)
+        renderer.step(k)
         if feedback_at and renderer.frame_index >= feedback_at:
             feedback_at = None
             ok = renderer.refine()
@@ -186,7 +212,8 @@ def cmd_render(args) -> int:
             image_io.write_png(args.out, renderer.image, tonemap=tonemap)
             if args.checkpoint:
                 renderer.save(args.checkpoint)
-        if not args.quiet:  # the ray counters wait for the device
+        if not args.quiet and (renderer.frame_index % progress_every == 0
+                               or renderer.frame_index == args.spp):
             el = time.perf_counter() - t0
             rays = (renderer.total_closest_rays + renderer.total_shadow_rays
                     - rays0)

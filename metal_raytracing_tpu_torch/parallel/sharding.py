@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..renderer import (Renderer, pixel_coords, render_rays,
+from ..renderer import (Renderer, graphs_apply, pixel_coords, render_rays,
                         render_sample)
 from ..scene import SceneData, SceneSpec
 from ..types import RenderConfig
@@ -179,11 +179,15 @@ class ShardedRenderer(Renderer):
 
     ``mode="spp"`` replicates the pixels and shards the samples;
     ``mode="tile"`` shards the pixels along the mesh's tile axis and the
-    samples along its spp axis.  Each step advances by ``n_spp`` samples.
-    ``device`` defaults to ``cuda:{LOCAL_RANK}``; a caller may give another,
-    several ranks on one card among them.  Checkpoints store total samples,
-    so they move between sharded and plain renderers (of either package);
-    rank 0 writes them."""
+    samples along its spp axis.  Each sharded step advances by ``n_spp``
+    samples.  ``device`` defaults to ``cuda:{LOCAL_RANK}``; a caller may
+    give another, several ranks on one card among them.  Checkpoints store
+    total samples, so they move between sharded and plain renderers (of
+    either package); rank 0 writes them.
+
+    The steps run eagerly, never as CUDA graphs
+    (``renderer.graphs_apply(..., sharded=True)``): gloo stages every
+    ``all_reduce`` through the host, which no graph can hold."""
 
     def __init__(self, scene, cfg: RenderConfig, mesh: Mesh,
                  mode: str = "spp", device=None):
@@ -196,11 +200,14 @@ class ShardedRenderer(Renderer):
         self.mesh = mesh
         self.mode = mode
         self.samples_per_step = mesh.shape["spp"]
+        self.graphed = graphs_apply(cfg, self.device, self.tracer,
+                                    sharded=True)
 
-    def step(self, k: int = 1) -> None:
-        """Advance ``k`` sharded steps (``k * samples_per_step`` samples),
-        each folded into the average as the reference's sharded step
-        does."""
+    def step(self, k: Optional[int] = None) -> None:
+        """Advance ``k`` sharded steps (``k * samples_per_step`` samples;
+        default ``samples_per_dispatch`` steps, as in the JAX package), each
+        folded into the average as the reference's sharded step does."""
+        k = self.samples_per_dispatch if k is None else k
         render = (render_sample_spp_sharded if self.mode == "spp"
                   else render_sample_tile_sharded)
         n = self.samples_per_step
@@ -210,9 +217,9 @@ class ShardedRenderer(Renderer):
                                    self.tracer, baked_tables=self.baked)
             # the sample is already the mean of n consecutive samples
             fif = float(np.float32(self.frame_index) * np.float32(n))
-            self.accum = (self.accum * fif + sample * n) / (fif + n)
-            self.ray_totals = self.ray_totals + torch.stack(
-                [stats["closest_rays"], stats["shadow_rays"]]).float()
+            self.accum.copy_((self.accum * fif + sample * n) / (fif + n))
+            self.ray_totals.add_(torch.stack(
+                [stats["closest_rays"], stats["shadow_rays"]]).float())
             self.frame_index += 1
 
     @property
@@ -231,10 +238,13 @@ class ShardedRenderer(Renderer):
 
     def render(self, spp: Optional[int] = None) -> np.ndarray:
         """Render until ``spp`` total samples are in the average (default
-        cfg.spp), in whole sharded steps; returns the (H, W, 3) average."""
+        cfg.spp), in batches of ``samples_per_dispatch`` whole sharded
+        steps with an exact remainder; returns the (H, W, 3) average."""
         spp = self.cfg.spp if spp is None else spp
         while self.total_samples < spp:
-            self.step()
+            steps_left = -(-(spp - self.total_samples)
+                           // self.samples_per_step)
+            self.step(min(self.samples_per_dispatch, steps_left))
         return self.image
 
     def save(self, path: str) -> None:

@@ -36,6 +36,12 @@ tracers (``"bvh"``, ``"bruteforce"``; ``ops.trace``) take the reference's
 path for its own exact tracers: their t as it is, the global set tested
 inside the tracer, and under ``compaction`` the ``dir_major`` bounce key
 and the light-major shadow key in place of the cluster keys.
+
+``Renderer.step(k)`` renders ``k`` samples, by default the JAX package's
+dispatch batch (``RenderConfig.samples_per_dispatch``).  Its counterpart of
+the JAX package's one jitted dispatch of k samples is one replay of a CUDA
+graph that holds them, on a CUDA device wherever :func:`graphs_apply`
+allows: the same kernels in the same order, so the same image.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ from .utils.profiling import named_scope
 
 __all__ = ["render_sample", "render_rays", "pixel_coords", "accumulate",
            "Renderer", "make_pixel_offsets", "make_tracers",
-           "make_closest_rank", "resolve_tracer", "bake_tables"]
+           "make_closest_rank", "resolve_tracer", "bake_tables",
+           "graphs_apply"]
 
 # Sort keys stay below this; dead rays take it and sort last.
 _DEAD_KEY = 1 << 30
@@ -143,6 +150,19 @@ def resolve_tracer(cfg: RenderConfig, device) -> str:
             f"tracer='cuda' runs the CUDA kernels and needs a CUDA device, "
             f"got {device}; use tracer='torch' for their plain versions")
     return cfg.tracer
+
+
+def graphs_apply(cfg: RenderConfig, device, tracer: str,
+                 sharded: bool = False) -> bool:
+    """Does ``Renderer.step`` run its samples as CUDA graph replays?  Only
+    on a CUDA device, and only where a sample makes no host sync and its
+    stats are not read: not with ``tracer="torch"`` (its plain versions
+    call ``nonzero``), ``telemetry`` or ``export_rays``, and not for a
+    ``parallel.ShardedRenderer`` (``sharded``: gloo stages every
+    ``all_reduce`` through the host).  Everywhere else the samples run
+    eagerly."""
+    return (torch.device(device).type == "cuda" and tracer != "torch"
+            and not cfg.telemetry and not cfg.export_rays and not sharded)
 
 
 def _bakes(spec: SceneSpec, cfg: RenderConfig, tracer: str) -> bool:
@@ -506,10 +526,13 @@ def _tile_unflatten(flat: torch.Tensor, h: int, w: int, th: int,
 
 def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                 px: torch.Tensor, py: torch.Tensor, offsets: torch.Tensor,
-                frame_index: int, tracer: str = "torch", tracers=None,
+                frame_index, tracer: str = "torch", tracers=None,
                 baked_tables=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Path-trace one sample for a flat set of pixels.
+
+    ``frame_index``: the sample index, an int or a 0-d int32 tensor on the
+    rays' device (what a CUDA graph reads); the two give the same bits.
 
     ``baked_tables``: :func:`bake_tables`' result, computed here when the
     config bakes and it is not given (a renderer keeps its own); ignored
@@ -1137,14 +1160,15 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
 
 
 def render_sample(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
-                  offsets: torch.Tensor, frame_index: int,
+                  offsets: torch.Tensor, frame_index,
                   tracer: str = "torch", tracers=None, baked_tables=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render one full-frame sample; returns ((H, W, 3) radiance, stats).
 
     Pixels are traced in tile-major order when the image divides into
-    primary-block tiles, then restored to row-major order.  ``tracers`` and
-    ``baked_tables`` as :func:`render_rays`."""
+    primary-block tiles, then restored to row-major order.
+    ``frame_index``, ``tracers`` and ``baked_tables`` as
+    :func:`render_rays`."""
     px, py = pixel_coords(cfg, offsets.device)
     tiles = tile_shape(cfg)
     if tiles is not None:
@@ -1161,9 +1185,18 @@ def render_sample(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
 
 
 def accumulate(prev: torch.Tensor, sample: torch.Tensor,
-               frame_index: int) -> torch.Tensor:
-    """Progressive average (reference: Raytracing.metal:395-401)."""
-    fi = float(np.float32(frame_index))
+               frame_index) -> torch.Tensor:
+    """Progressive average (reference: Raytracing.metal:395-401).
+
+    ``frame_index`` is an int or a 0-d integer tensor on ``prev``'s device;
+    either way the weight is a 0-d float32 tensor there, so the two forms
+    give the same bits (a Python float divisor would make the division a
+    multiply by its reciprocal on a CUDA device)."""
+    if torch.is_tensor(frame_index):
+        fi = frame_index.float()
+    else:
+        fi = torch.full((), float(np.float32(frame_index)),
+                        device=prev.device)
     return (prev * fi + sample) / (fi + 1.0)
 
 
@@ -1173,7 +1206,16 @@ class Renderer:
 
     The (accumulation image, sample count, seed) triple is the checkpoint
     state; checkpoints use the JAX package's npz keys and fingerprint, so
-    they load across the two packages."""
+    they load across the two packages.
+
+    Where ``graphed`` (:func:`graphs_apply`), :meth:`step` replays one CUDA
+    graph of its k samples, captured at the first step of k samples (all
+    graphs in one memory pool) after one eager warm-up sample on a side
+    stream that builds the kernels.  A graph reads and writes the state in
+    place: ``accum``, ``ray_totals`` and ``frame``, the device copy of the
+    host's ``frame_index``.  :meth:`reset` and the checkpoint loads write
+    them in place; :meth:`refine` rebuilds the tables the graphs read, so
+    it drops them.  A failed capture raises."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig, device="cuda"):
         self.scene = scene
@@ -1187,29 +1229,82 @@ class Renderer:
         # the primary pass's tables under bake_primary, once a build
         self.baked = bake_tables(self.data, self.spec, cfg, self.tracer)
         self.offsets = make_pixel_offsets(cfg, self.device)
-        self.reset()
+        # samples a step by default (the JAX package's auto tiers)
+        self.samples_per_dispatch = cfg.samples_per_dispatch or (
+            8 if cfg.num_pixels <= 256 * 256
+            else 4 if cfg.num_pixels <= 512 * 512 else 2)
+        self.graphed = graphs_apply(cfg, self.device, self.tracer)
+        self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
+        self._pool = None
+        self.accum = torch.zeros((cfg.height, cfg.width, 3),
+                                 dtype=torch.float32, device=self.device)
+        self.ray_totals = torch.zeros((2,), dtype=torch.float32,
+                                      device=self.device)
+        self.frame = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.frame_index = 0
 
     def reset(self) -> None:
         """Restart progressive accumulation (reference:
         Renderer.swift:353-355)."""
         self.frame_index = 0
-        self.accum = torch.zeros((self.cfg.height, self.cfg.width, 3),
-                                 dtype=torch.float32, device=self.device)
-        self.ray_totals = torch.zeros((2,), dtype=torch.float32,
-                                      device=self.device)
+        for x in (self.accum, self.ray_totals, self.frame):
+            x.zero_()
 
-    def step(self, k: int = 1) -> None:
-        """Render ``k`` samples for every pixel and fold them into the
-        average.  Nothing here waits for the device."""
-        for _ in range(k):
-            sample, stats = render_sample(self.data, self.spec, self.cfg,
-                                          self.offsets, self.frame_index,
-                                          self.tracer,
-                                          baked_tables=self.baked)
-            self.accum = accumulate(self.accum, sample, self.frame_index)
-            self.ray_totals = self.ray_totals + torch.stack(
-                [stats["closest_rays"], stats["shadow_rays"]]).float()
-            self.frame_index += 1
+    def step(self, k: Optional[int] = None) -> None:
+        """Render ``k`` samples (default: ``samples_per_dispatch``) for
+        every pixel and fold them into the average, as one graph replay
+        where ``graphed``.  Nothing here waits for the device (but the
+        capture at the first step of k samples)."""
+        k = self.samples_per_dispatch if k is None else k
+        if self.graphed:
+            with torch.cuda.device(self.device):
+                self.graph(k).replay()
+        else:
+            for _ in range(k):
+                self._sample()
+        self.frame_index += k
+
+    def _sample(self) -> None:
+        """One sample folded into the state in place: what a graph holds."""
+        sample, stats = render_sample(self.data, self.spec, self.cfg,
+                                      self.offsets, self.frame, self.tracer,
+                                      baked_tables=self.baked)
+        self.accum.copy_(accumulate(self.accum, sample, self.frame))
+        self.ray_totals.add_(torch.stack(
+            [stats["closest_rays"], stats["shadow_rays"]]).float())
+        self.frame.add_(1)
+
+    def graph(self, k: int) -> "torch.cuda.CUDAGraph":
+        """The CUDA graph of ``k`` samples, captured at its first use
+        (capturing runs nothing on the card).  Before the first capture
+        into a pool, one eager sample on scratch state warms up on a side
+        stream (PyTorch's whole-network recipe): it builds and loads the
+        kernels, whose launches then hold no first-use work."""
+        if k in self.graphs:
+            return self.graphs[k]
+        with torch.cuda.device(self.device):
+            if self._pool is None:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    sample, _ = render_sample(
+                        self.data, self.spec, self.cfg, self.offsets,
+                        self.frame, self.tracer, baked_tables=self.baked)
+                    accumulate(self.accum, sample, self.frame)
+                torch.cuda.current_stream().wait_stream(side)
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                for _ in range(k):
+                    self._sample()
+        self.graphs[k] = graph
+        return graph
+
+    def drop_graphs(self) -> None:
+        """Forget the captured graphs: the next step of each k captures
+        anew (after a warm-up sample), with the kernels and tables bound
+        then."""
+        self.graphs, self._pool = {}, None
 
     def refine(self, stride: int = 64) -> bool:
         """Rebuild the clusters to this render's measured rays, then go on
@@ -1240,6 +1335,7 @@ class Renderer:
             presplit=self.cfg.bvh_presplit, builder_alpha=self.cfg.bvh_alpha,
             rays=rays, device=self.device)
         self.baked = bake_tables(self.data, self.spec, self.cfg, self.tracer)
+        self.drop_graphs()  # they read the old tables
         return True
 
     @property
@@ -1254,13 +1350,20 @@ class Renderer:
 
     def render(self, spp: Optional[int] = None) -> np.ndarray:
         """Render ``spp`` more samples (default cfg.spp); returns the
-        (H, W, 3) float32 average."""
-        self.step(self.cfg.spp if spp is None else spp)
+        (H, W, 3) float32 average.  Steps in ``samples_per_dispatch``
+        batches with an exact remainder step, so ``total_samples``
+        advances by exactly ``spp``."""
+        spp = self.cfg.spp if spp is None else spp
+        target = self.total_samples + spp
+        while self.total_samples < target:
+            self.step(min(self.samples_per_dispatch,
+                          target - self.total_samples))
         return self.image
 
     @property
     def image(self) -> np.ndarray:
-        return self.accum.cpu().numpy()
+        """A copy of the average (the state itself changes in place)."""
+        return self.accum.to("cpu", copy=True).numpy()
 
     # -- checkpoint / resume -------------------------------------------------
     def fingerprint(self) -> str:
@@ -1280,13 +1383,13 @@ class Renderer:
     @property
     def total_samples(self) -> int:
         """Samples folded into ``accum`` so far: the checkpoints' portable
-        unit of progress.  The plain renderer folds one a step;
-        ``parallel.ShardedRenderer`` overrides this and
+        unit of progress.  ``parallel.ShardedRenderer`` overrides this and
         :meth:`_set_total_samples`."""
         return self.frame_index
 
     def _set_total_samples(self, total: int) -> None:
         self.frame_index = int(total)
+        self.frame.fill_(self.frame_index)
 
     def state_dict(self) -> dict:
         return {
@@ -1310,13 +1413,12 @@ class Renderer:
                     f"checkpoint {got}, this renderer {self.fingerprint()}")
         total = int(state["total_samples"] if "total_samples" in state
                     else state["frame_index"])
-        self.accum = torch.as_tensor(np.asarray(state["accum"], np.float32),
-                                     device=self.device)
+        self.accum.copy_(torch.as_tensor(np.asarray(state["accum"],
+                                                    np.float32)))
         self._set_total_samples(total)
-        self.ray_totals = torch.tensor(
+        self.ray_totals.copy_(torch.tensor(
             [float(state.get("total_closest_rays", 0)),
-             float(state.get("total_shadow_rays", 0))],
-            dtype=torch.float32, device=self.device)
+             float(state.get("total_shadow_rays", 0))]))
 
     @staticmethod
     def checkpoint_path(path: str) -> str:

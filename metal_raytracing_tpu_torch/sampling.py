@@ -8,6 +8,7 @@ base by the same paired-digit float32 loop.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -122,14 +123,21 @@ def norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((v * v).sum(dim=-1, keepdim=True))
 
 
+@functools.lru_cache(maxsize=None)
+def _tangent_seed(device: torch.device) -> torch.Tensor:
+    """The reference's fixed tangent seed on ``device``, made once: a copy
+    from host memory at every call would wait for the card and cannot sit
+    in a CUDA graph."""
+    return torch.tensor([0.0072, 1.0, 0.0034], dtype=torch.float32,
+                        device=device)
+
+
 def align_hemisphere_with_normal(sample: torch.Tensor,
                                  normal: torch.Tensor) -> torch.Tensor:
     """Rotate +Y-hemisphere samples onto the surface normal using the
     reference's fixed tangent seed (0.0072, 1, 0.0034)
     (reference: Raytracing.metal:132-147)."""
-    seed = torch.tensor([0.0072, 1.0, 0.0034], dtype=torch.float32,
-                        device=normal.device)
-    right = _cross(normal, seed.expand_as(normal))
+    right = _cross(normal, _tangent_seed(normal.device).expand_as(normal))
     right = right / norm(right)
     forward = _cross(right, normal)
     return (sample[..., 0:1] * right + sample[..., 1:2] * normal

@@ -7,8 +7,8 @@ stores as arrays of structs (lights, materials) stay structs of arrays.
 
 ``RenderConfig`` carries only the fields the port implements.  A knob of the
 JAX package's config that the port lacks (``live_widths``,
-``samples_per_dispatch``, ...: ROADMAP.md's list of what is deliberately
-not ported) is a ``TypeError`` at construction rather than a silent no-op,
+``carry_seed``, ...: ROADMAP.md's list of what is deliberately not ported)
+is a ``TypeError`` at construction rather than a silent no-op,
 and a value the port does not carry for a knob it has (a ``rank_trace``
 depth, an unknown ``sort_key`` layout) a ``ValueError``.
 """
@@ -309,6 +309,12 @@ class RenderConfig:
     max_t live]``, the sample the ``sah_rays`` builder reads
     (``Renderer.refine``).  Neither changes the image.
 
+    ``samples_per_dispatch``: the samples ``Renderer.step`` renders by
+    default, 0 for the JAX package's auto tiers (8 for images up to 256x256
+    pixels, 4 up to 512x512, else 2).  On a CUDA device the renderer runs
+    them as one CUDA graph replay where ``renderer.graphs_apply`` allows;
+    the image is the same.
+
     Every default is the JAX package's but one: ``compaction`` is False
     here.  The sort keys come from an (rays x clusters) elementwise chain
     that XLA fuses into one reduce and eager PyTorch runs as some forty
@@ -357,8 +363,13 @@ class RenderConfig:
     enable_textures: bool = False
     texture_filter: str = "nearest"
     env_map: bool = False
+    samples_per_dispatch: int = 0
     telemetry: bool = False
     export_rays: int = 0
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
 
     def __post_init__(self):
         if self.tracer not in TRACERS:
@@ -376,6 +387,9 @@ class RenderConfig:
         if self.bvh_builder not in BUILDERS:
             raise ValueError(f"bvh_builder must be one of {BUILDERS}, "
                              f"got {self.bvh_builder!r}")
+        if self.samples_per_dispatch < 0:
+            raise ValueError(f"samples_per_dispatch is a count >= 0 (0: "
+                             f"auto), got {self.samples_per_dispatch}")
         if self.export_rays < 0:
             raise ValueError(f"export_rays is a stride >= 0, got "
                              f"{self.export_rays}")

@@ -53,11 +53,15 @@ def _sync(device: torch.device) -> None:
 def benchmark_renderer(renderer, samples: int = 4,
                        warmup: int = 1) -> BenchResult:
     """Time ``samples`` progressive steps after ``warmup`` untimed ones
-    (the first builds the kernels); ray counts come from the renderer's own
-    traced-ray totals."""
+    (the first builds the kernels and, where the renderer runs CUDA graphs,
+    captures its batch's); ray counts come from the renderer's own
+    traced-ray totals.  A step renders the renderer's dispatch batch
+    (``samples_per_dispatch``, or a sharded step's samples), so the samples
+    are counted from ``total_samples``, as in the JAX package."""
     dev = renderer.device
     t0 = time.perf_counter()
-    renderer.step(warmup)
+    for _ in range(warmup):
+        renderer.step()
     _sync(dev)
     warmup_s = time.perf_counter() - t0
 
@@ -65,7 +69,8 @@ def benchmark_renderer(renderer, samples: int = 4,
     samples_before = renderer.total_samples
     _sync(dev)
     t0 = time.perf_counter()
-    renderer.step(samples)
+    for _ in range(samples):
+        renderer.step()
     _sync(dev)
     seconds = time.perf_counter() - t0
     rays = (renderer.total_closest_rays + renderer.total_shadow_rays
@@ -85,6 +90,7 @@ class ProfileResult:
     device_ms: float  # kernel time on the card over the window
     launches: int  # kernels the card ran over the window
     kernels: list  # (name, device ms, launches), most device time first
+    launch_calls: int  # host calls that launched them (or a graph of them)
 
     @property
     def device_ms_per_sample(self) -> float:
@@ -105,26 +111,37 @@ def _kernel_rows(prof):
             and not getattr(evt, "is_user_annotation", False)]
 
 
-def profile_renderer(renderer, samples: int = 2) -> ProfileResult:
-    """Device time by kernel over ``samples`` progressive steps on a CUDA
-    device (``torch.profiler``, CUPTI): each kernel's device time and
+def profile_renderer(renderer, samples: int = 2,
+                     steps: int = 1) -> ProfileResult:
+    """Device time by kernel over ``steps`` steps of ``samples`` samples on
+    a CUDA device (``torch.profiler``, CUPTI): each kernel's device time and
     launch count, from the kernel events alone (an operator's row repeats
-    its kernels' time, and the named scopes are left out).  The profiler
-    slows the host, so read a device busy share against the wall time of
-    an unprofiled run."""
+    its kernels' time, and the named scopes are left out), and the host's
+    launch calls, the runtime rows whose name holds "Launch"
+    (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaGraphLaunch``).
+    Where the renderer runs CUDA graphs, the graph of ``samples`` samples
+    is captured before the window, which then holds its replays.  The
+    profiler slows the host, so read a device busy share against the wall
+    time of an unprofiled run."""
     from torch.profiler import ProfilerActivity, profile
 
+    if renderer.graphed:
+        renderer.graph(samples)
     torch.cuda.synchronize(renderer.device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        renderer.step(samples)
+        for _ in range(steps):
+            renderer.step(samples)
         torch.cuda.synchronize(renderer.device)
     rows = [(evt.key, evt.device_time_total / 1e3, evt.count)
             for evt in _kernel_rows(prof)]
     rows.sort(key=lambda r: -r[1])
-    return ProfileResult(samples=samples,
+    calls = sum(evt.count for evt in prof.key_averages()
+                if evt.key.startswith("cu") and "Launch" in evt.key)
+    return ProfileResult(samples=samples * steps,
                          device_ms=sum(r[1] for r in rows),
-                         launches=sum(r[2] for r in rows), kernels=rows)
+                         launches=sum(r[2] for r in rows), kernels=rows,
+                         launch_calls=calls)
 
 
 def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:

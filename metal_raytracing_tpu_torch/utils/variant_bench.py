@@ -41,7 +41,9 @@ arguments, which the timed passes leave null.  The script prints
   profiler (CUDA events around ten host calls of a few-microsecond kernel
   time the wrapper too);
 - with ``--render``, ms/sample and profiled device ms/sample of the main
-  path with each variant's kernels swapped in, forwards and backwards:
+  path with each variant's kernels swapped in, forwards and backwards
+  (each turn captures its own CUDA graphs, with its variant's kernels,
+  before its timed window):
   dragon at ``compaction=False`` and at ``compaction=True,
   fused_broadphase=True`` (K3/K4), at ``compaction=True, rank_trace=2``
   (K6) or at ``compaction=True, fused_broadphase=True`` (K5), or coatball
@@ -422,16 +424,28 @@ def time_renders(lib, libs, card, samples: int, entries, padded, family,
     for label, kw in RENDERS[family]:
         r = Renderer(scene, RenderConfig(width=w, height=h, **kw),
                      device="cuda")
-        r.render(1)
+        seen = []  # every earlier turn's graphs (reset: they hold no pool)
 
         def measure():
-            r.render(1)
+            # A graph holds the kernels it was captured with, so each turn
+            # drops the last turn's and captures its own, with the
+            # variant's kernels, before its timed window: the warm-up
+            # render takes the timed render's steps.
+            r.drop_graphs()
+            r.render(samples)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render(samples)
             torch.cuda.synchronize()
-            return ((time.perf_counter() - t0) / samples * 1e3,
-                    profile_renderer(r, 2))
+            ms = (time.perf_counter() - t0) / samples * 1e3
+            prof = profile_renderer(r, 2)
+            graphs = list(r.graphs.values())
+            if any(g is old for g in graphs for old in seen):
+                raise RuntimeError("a turn replayed another turn's graph")
+            for g in graphs:
+                g.reset()
+            seen.extend(graphs)
+            return ms, prof
 
         for name, (ms, prof) in in_turns(lib, libs, entries, measure, padded,
                                          no_options):

@@ -154,7 +154,7 @@ def test_cuda_tracer_on_cpu_device_raises():
 
 
 def test_unported_config_knobs_are_errors():
-    for knob in ("carry_seed", "samples_per_dispatch", "live_widths",
+    for knob in ("carry_seed", "live_from_bounce", "live_widths",
                  "shadow_mid_order", "visit_pairs", "visit_pairs2"):
         with pytest.raises(TypeError):
             RenderConfig(**{knob: False})

@@ -14,8 +14,8 @@ plain ``Renderer`` and ``render_sample`` (the tolerances of
   counts;
 - spp-sharded, 2 and 4 ranks: the mean of the plain samples (atol 1e-5);
 - the 2-D ``tile=2, spp=2`` mesh: the mean of two plain samples;
-- the progressive spp and tile renderers: the plain ``Renderer`` (RMSE
-  < 1e-5);
+- the progressive spp and tile renderers, and two sharded steps in one
+  ``step(k=2)``: the plain ``Renderer`` (RMSE < 1e-5);
 - a sharded checkpoint resumes in the port's plain ``Renderer`` and loads in
   the JAX ``Renderer`` (fingerprint and sample count equal); a checkpoint
   that is not a whole number of steps is rejected.
@@ -102,7 +102,8 @@ def test_2d_mesh_tile_and_spp(sharded, plain):
 
 def test_sharded_renderers_progressive(sharded):
     res, _ = sharded
-    for label, spp in (("progressive_spp", 8), ("progressive_tile", 4)):
+    for label, spp in (("progressive_spp", 8), ("progressive_tile", 4),
+                       ("step2_spp", 8)):
         ref = Renderer(W.scene(), W.config(), device="cpu").render(spp)
         assert rmse(res[label], ref) < 1e-5, label
 

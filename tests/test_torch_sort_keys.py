@@ -62,8 +62,7 @@ LAYOUTS = {
 }
 # ROADMAP.md's list of knobs deliberately not ported
 UNPORTED = ("visit_pairs", "visit_pairs2", "shadow_mid_order", "live_widths",
-            "live_from_bounce", "carry_seed", "shadow_ray_block_last",
-            "samples_per_dispatch")
+            "live_from_bounce", "carry_seed", "shadow_ray_block_last")
 
 
 @pytest.fixture(scope="module")

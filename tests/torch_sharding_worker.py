@@ -69,6 +69,11 @@ def run(rank: int, world: int, init: str, out: str) -> None:
                              mode="tile", device="cpu")
     keep("progressive_tile", tile_r.render(4))
     assert tile_r.total_samples == 4
+    # two sharded steps in one call: 2 x 4 samples
+    batch_r = ShardedRenderer(sc, cfg, spp_mesh, mode="spp", device="cpu")
+    batch_r.step(k=2)
+    assert batch_r.total_samples == 8
+    keep("step2_spp", batch_r.image)
 
     # a sharded checkpoint (one step, 4 samples), written by rank 0
     ck = ShardedRenderer(sc, cfg, spp_mesh, mode="spp", device="cpu")
