@@ -153,7 +153,16 @@ Phases, each of which raises (exit code != 0) on failure:
     capture seconds and pool bytes, and the two images equal bit for bit; graph batches of 1,
     2 and 4 in turns on dragon A and coatball; ``refine`` between two
     batches, a checkpoint resumed in a fresh renderer, and the CLI's
-    ``render --spp 6 --save-every 4`` checkpointing at samples 4 and 6.
+    ``render --spp 6 --save-every 4`` checkpointing at samples 4 and 6;
+21. the native OBJ parser (``io/native.py``: ``native/objparse.cpp`` built
+    with the host's C++ compiler): its build seconds and the compiler's
+    version line; each model of the dragon scene written to an OBJ file
+    (``io.obj.write_obj``) and parsed natively and in Python in turns,
+    the two models equal; the dragon scene 1024x1024 loaded from the
+    procedural stand-ins and from the files natively and in Python
+    (``MRT_RESOURCES``, ``MRT_NO_NATIVE``), two rounds in turns (load and
+    renderer build seconds); each scene rendered through the graphed main
+    path, the three images equal bit for bit.
 
 The renderers replay CUDA graphs, so the kernel wrappers' launch counts
 count a graph's launches once, when it is captured, and a replay's not at
@@ -2710,6 +2719,11 @@ def dispatch_config(card, label, name, size, kw, timed=True):
     profs = [(mode, checked_profile(f"{label} {mode}", r, k, per,
                                     DISPATCH_PROFILE_STEPS))
              for mode, r in (("graph", g), ("eager", e))]
+    # a window that checked_profile discards and takes again steps its
+    # renderer once more: step the other to the same sample count
+    for r, other in ((g, e), (e, g)):
+        while r.total_samples < other.total_samples:
+            r.step()
     same = (bool(torch.equal(g.accum, e.accum))
             and bool(torch.equal(g.ray_totals, e.ray_totals))
             and g.total_samples == e.total_samples)
@@ -2864,6 +2878,192 @@ def dispatch_phase(card):
         f"6: {same}")
     assert saves == [4, 6] and same and ck.total_samples == 6, saves
     return counts["dragon A"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the native OBJ parser on the scene load
+# ---------------------------------------------------------------------------
+
+# the models of the dragon scene (scenes/library.py dragon_scene)
+DRAGON_MODELS = ("train", "dragon", "treefir", "plane", "sphere", "plane-back")
+PARSE_ROUNDS = 3  # parses of each model by each parser, in turns
+LOAD_SAMPLES = 4  # samples of each dragon render (its graph captures 2)
+
+
+def models_equal(a, b) -> bool:
+    """Every field of two ``LoadedModel``s, bit for bit."""
+    def arrays(m):
+        return [m.positions, m.normals, m.texcoords] + [
+            getattr(s, f) for s in m.submeshes
+            for f in ("tri_pos_idx", "tri_norm_idx", "tri_uv_idx")]
+
+    def fields(m):
+        return (m.name, m.face_count, [(s.material_name, s.material)
+                                       for s in m.submeshes])
+
+    pairs = list(zip(arrays(a), arrays(b)))
+    return fields(a) == fields(b) and len(pairs) == len(arrays(a)) and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and np.array_equal(x, y)) for x, y in pairs)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``lscpu``), machine and logical CPUs."""
+    import os
+    import platform
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True,
+                             text=True).stdout
+    except OSError:
+        out = ""
+    names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+             if line.startswith("Model name")]
+    return (f"{names[0] if names else 'unknown CPU'} "
+            f"({platform.machine()}), {os.cpu_count()} logical CPUs")
+
+
+def dragon_from(res, mode):
+    """The dragon scene 1024x1024 with its models from ``mode``:
+    ``"procedural"`` (no ``MRT_RESOURCES``), or the OBJ files in ``res``
+    through ``load_obj``'s ``"native"`` or ``"python"`` parser.  Returns
+    (seconds to load the models, seconds to build the renderer on the card,
+    the renderer, the paths the native parser read)."""
+    import os
+
+    import torch
+
+    from metal_raytracing_tpu_torch import assets
+    from metal_raytracing_tpu_torch.io import native
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    env = {"MRT_RESOURCES": None if mode == "procedural" else res,
+           "MRT_NO_NATIVE": "1" if mode == "python" else None}
+    saved = {k: os.environ.get(k) for k in env}
+    parsed, parse = [], native.parse_obj_native
+
+    def counted(path):
+        parsed.append(path)
+        return parse(path)
+
+    def set_env(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    set_env(env)
+    native.parse_obj_native = counted
+    assets.resolve_model.cache_clear()
+    try:
+        w, h = DRAGON
+        t0 = time.perf_counter()
+        scene = get_scene("dragon", w, h)
+        t1 = time.perf_counter()
+        r = Renderer(scene, RenderConfig(width=w, height=h), device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        native.parse_obj_native = parse
+        set_env(saved)
+        assets.resolve_model.cache_clear()
+    return t1 - t0, t2 - t1, r, parsed
+
+
+def parse_phase(card):
+    """Phase 21: the native OBJ parser (``io/native.py``, built from
+    ``native/objparse.cpp`` with the host's C++ compiler) against the
+    pure-Python one on the dragon scene's models written to OBJ files:
+    the build's seconds and the compiler, each model's parse by both in
+    turns and the two models equal; the dragon scene 1024x1024 loaded from
+    the stand-ins, from the files natively and in Python, in turns (load
+    and build seconds); each rendered through the graphed main path, the
+    images equal bit for bit.  Returns the launch counts of the native
+    scene's render (its warm-up sample and capture)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from metal_raytracing_tpu_torch.io import native, procedural
+    from metal_raytracing_tpu_torch.io.obj import load_obj, write_obj
+    from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+
+    t0 = time.perf_counter()
+    native.load_library()
+    cxx = native.compiler()  # $CXX, else c++, else g++
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    log(f"  parser build+load {time.perf_counter() - t0:.3f} s (compile "
+        f"{native.build_seconds:.3f} s) -> {native.BUILD_DIR}; {cxx} "
+        f"(CXX={os.environ.get('CXX')}): "
+        f"{version}; host {host_cpu()}; {card}")
+    with tempfile.TemporaryDirectory() as res:
+        for name in DRAGON_MODELS:
+            path = os.path.join(res, f"{name}.obj")
+            write_obj(procedural.make_model(name), path)
+            secs, got = {"native": [], "python": []}, {}
+            for i in range(PARSE_ROUNDS):
+                for mode in (("native", "python") if i % 2 == 0
+                             else ("python", "native")):
+                    t = time.perf_counter()
+                    got[mode] = load_obj(path, use_native=mode == "native")
+                    secs[mode].append(time.perf_counter() - t)
+            same = models_equal(got["native"], got["python"])
+            med = {m: statistics.median(v) for m, v in secs.items()}
+            log(f"    {name}: {got['native'].triangle_count} triangles, "
+                f"{os.path.getsize(path) / 2**20:.2f} MiB; parse s native "
+                + " / ".join(f"{x:.4f}" for x in secs["native"])
+                + ", python " + " / ".join(f"{x:.4f}" for x in secs["python"])
+                + f" (python / native {med['python'] / med['native']:.1f}x);"
+                f" models equal: {same}")
+            assert same, name
+
+        modes = ("procedural", "native", "python")
+        loads, renderers = {m: [] for m in modes}, {}
+        for i in range(2):
+            for mode in modes if i == 0 else modes[::-1]:
+                load_s, build_s, r, parsed = dragon_from(res, mode)
+                loads[mode].append((load_s, build_s))
+                assert len(parsed) == (len(DRAGON_MODELS)
+                                       if mode == "native" else 0), parsed
+                renderers.setdefault(mode, r)  # the first round's
+                del r
+        log(f"    dragon {DRAGON[0]}x{DRAGON[1]} scene, load s + renderer "
+            "build s, 2 rounds in turns: " + "; ".join(
+                f"{m} " + " / ".join(f"{a:.3f} + {b:.3f}"
+                                     for a, b in loads[m]) for m in modes))
+
+        images, counts = {}, None
+        for mode in modes:
+            r = renderers[mode]
+            assert r.graphed and r.tracer == "cuda"
+            TC.reset_launch_counts()
+            r.render(LOAD_SAMPLES)
+            run = launch_counts()
+            per, note = graphed_run(f"dragon {mode}", r, run)
+            assert run["closest_hier"] > 0 and run["any_hier"] > 0, run
+            if mode == "native":
+                counts = run
+            ms = timed_steps(r, 1, r.samples_per_dispatch)
+            images[mode] = r.accum.clone()
+            log(f"    {mode}: {r.total_samples} samples graphed, the last "
+                f"step of {r.samples_per_dispatch} timed: {ms:.3f} ms/sample;"
+                f" launches ({note}) {({k: v for k, v in run.items() if v})}")
+        img = images["native"].cpu().numpy()
+        assert img.shape == (DRAGON[1], DRAGON[0], 3)
+        assert bool(np.isfinite(img).all()) and float(img.max()) > 0.01
+        same = {m: bool(torch.equal(images[m], images["native"]))
+                for m in ("python", "procedural")}
+        log(f"    dragon images after {r.total_samples} samples: native == "
+            f"python {same['python']}, native == procedural "
+            f"{same['procedural']}; on {card}")
+        assert all(same.values()), same
+    return counts
 
 
 def main() -> int:
@@ -3169,6 +3369,16 @@ def main() -> int:
         f"{ {k: v for k, v in graphed.items() if v} }")
     assert graphed["closest_hier"] > 0 and graphed["any_hier"] > 0, graphed
     log(f"phase 20: {time.perf_counter() - t20:.1f} s")
+
+    # ---- phase 21: the native OBJ parser on the scene load
+    t21 = time.perf_counter()
+    log("phase 21: the native OBJ parser against the Python one on the "
+        "dragon scene's models as OBJ files, and the dragon scene loaded "
+        "each way through the graphed main path")
+    loaded = parse_phase(card)
+    log(f"  the native-loaded scene's run (warm-up sample and capture): "
+        f"{ {k: v for k, v in loaded.items() if v} }")
+    log(f"phase 21: {time.perf_counter() - t21:.1f} s")
 
     kernels = []
     modes = {"K5": "closest global", "K5 keys": "keys"}  # K5's two entries

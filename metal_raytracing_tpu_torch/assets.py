@@ -6,7 +6,8 @@ The reference loads assets strictly from its app bundle via ModelIO
 the deterministic procedural generators in :mod:`.io.procedural`, so every
 scene renders on a machine with no assets at all.  The port's copy of
 ``metal_raytracing_tpu.assets``; point ``$MRT_RESOURCES`` at an asset mirror
-to load the real OBJ files.  Textures are ``"checker:N"`` procedural
+to load the real OBJ files (through the native parser, ``io/native.py``,
+unless ``$MRT_NO_NATIVE`` is set).  Textures are ``"checker:N"`` procedural
 checkerboards (what the procedural stand-ins carry) or image files, which
 need PIL.
 """

@@ -18,9 +18,16 @@ Supported surface:
 - smooth vertex-normal synthesis (area-weighted) when the OBJ has no ``vn``
   (teapot.obj ships none)
 
-This is the port's copy of ``metal_raytracing_tpu.io.obj`` (pure numpy); it
-takes the pure-Python parse path only (the JAX package's optional native
-parser is not carried over).
+This is the port's copy of ``metal_raytracing_tpu.io.obj`` (pure numpy).
+:func:`load_obj` parses with the port's native C++ parser
+(``metal_raytracing_tpu_torch/native/objparse.cpp`` through :mod:`.native`,
+built at its first use) unless ``MRT_NO_NATIVE`` is set or
+``use_native=False``; the pure-Python parser (``_load_obj_python``) is the
+correctness oracle for it.  A parser that cannot be built raises: unlike the
+JAX package, nothing falls back to Python when native was asked for.  The
+two parsers round some decimal strings differently, as the JAX package's
+do: ``sscanf("%f")`` rounds straight to float32, ``float()`` then
+``np.float32`` rounds twice.
 """
 
 from __future__ import annotations
@@ -142,8 +149,90 @@ def _resolve(idx: int, count: int) -> int:
     return idx - 1 if idx > 0 else count + idx
 
 
-def load_obj(path: str, compute_normals: bool = True) -> LoadedModel:
-    """Parse an OBJ file (plus its mtllib) into a LoadedModel."""
+def load_obj(path: str, compute_normals: bool = True,
+             use_native: Optional[bool] = None) -> LoadedModel:
+    """Parse an OBJ file (plus its mtllib) into a LoadedModel.
+
+    Uses the native C++ parser (:mod:`.native`, built at its first use;
+    ``RuntimeError`` when it cannot be built or loaded); set
+    ``MRT_NO_NATIVE=1`` or ``use_native=False`` for the pure-Python path.
+    """
+    if use_native is None:
+        use_native = not os.environ.get("MRT_NO_NATIVE")
+    if use_native:
+        from .native import parse_obj_native
+
+        return _from_native(parse_obj_native(path), path, compute_normals)
+    return _load_obj_python(path, compute_normals)
+
+
+def _from_native(raw, path: str, compute_normals: bool) -> LoadedModel:
+    """Convert a native parse to LoadedModel with semantics identical to
+    the pure-Python path (normal synthesis, uv gating, empty submeshes)."""
+    base_dir = os.path.dirname(os.path.abspath(path))
+    materials: Dict[str, Material] = {}
+    for rel in raw.mtllibs:
+        mtl_path = os.path.join(base_dir, rel)
+        if os.path.exists(mtl_path):
+            materials.update(load_mtl(mtl_path))
+
+    pos = raw.positions
+    have_normals = raw.normals.shape[0] > 0
+    have_uv = raw.texcoords.shape[0] > 0
+
+    synthesized = None
+    need_synth = (not have_normals and compute_normals) or any(
+        have_normals and (tn < 0).any() for _, _, tn, _ in raw.submeshes)
+    if need_synth:
+        all_tris = [[(int(a), -1, int(a)) for a in tri]
+                    for _, tp, _, _ in raw.submeshes for tri in tp]
+        synthesized = _smooth_vertex_normals(pos, all_tris)
+
+    name = os.path.splitext(os.path.basename(path))[0]
+    default_mat = Material(base_color=(1.0, 1.0, 1.0), name="default")
+    submeshes: List[SubmeshData] = []
+    mixed_fallback = False  # some faces have vn indices, some don't
+    nvn = raw.normals.shape[0]
+    for mat_name, tp, tn, tu in raw.submeshes:
+        if tp.shape[0] == 0:
+            continue
+        if have_normals:
+            if (tn < 0).any():
+                # Fallback indices point at the synthesized per-position
+                # normals appended AFTER the file's vn array (see
+                # _load_obj_python); a plain position index would alias
+                # into vn (IndexError when V > VN, wrong normals otherwise).
+                mixed_fallback = True
+                tri_nrm = np.where(tn < 0, tp + nvn, tn)
+            else:
+                tri_nrm = tn
+        else:
+            tri_nrm = tp.copy()
+        has_uv = have_uv and (tu >= 0).all()
+        submeshes.append(SubmeshData(
+            material_name=mat_name,
+            material=materials.get(mat_name, default_mat),
+            tri_pos_idx=tp,
+            tri_norm_idx=tri_nrm,
+            tri_uv_idx=tu if has_uv else None,
+        ))
+
+    if have_normals:
+        out_normals = (np.concatenate([raw.normals, synthesized], axis=0)
+                       if mixed_fallback else raw.normals)
+    elif synthesized is not None:
+        out_normals = synthesized
+    else:
+        out_normals = np.zeros_like(pos)
+    return LoadedModel(
+        name=name, positions=pos, normals=out_normals,
+        texcoords=raw.texcoords if have_uv else None,
+        submeshes=submeshes, face_count=raw.face_count,
+    )
+
+
+def _load_obj_python(path: str, compute_normals: bool = True) -> LoadedModel:
+    """Pure-Python OBJ parse (the correctness oracle of the native one)."""
     positions: List[Tuple[float, float, float]] = []
     normals: List[Tuple[float, float, float]] = []
     texcoords: List[Tuple[float, float]] = []
@@ -267,3 +356,34 @@ def _smooth_vertex_normals(pos: np.ndarray, tris) -> np.ndarray:
             np.add.at(n, t[:, c], face_n)
     lens = np.linalg.norm(n, axis=1, keepdims=True)
     return (n / np.maximum(lens, 1e-20)).astype(np.float32)
+
+
+def write_obj(model: LoadedModel, path: str) -> None:
+    """Write ``model`` as an OBJ file, with its materials in an MTL file of
+    the same stem beside it: positions and normals at ``%.9g`` (every
+    float32 reads back to the bit), triangles as ``v//vn`` with 1-based
+    indices, one ``usemtl`` a submesh.  Texcoords and textures are not
+    written.  :func:`load_obj` of the file gives back a ``model`` without
+    them, with the submeshes of one material merged in their order, as a
+    file's ``usemtl`` groups are."""
+    stem = os.path.splitext(os.path.basename(path))[0]
+    mtl = os.path.join(os.path.dirname(os.path.abspath(path)), f"{stem}.mtl")
+    with open(mtl, "w") as f:
+        for name, m in {s.material_name: s.material
+                        for s in model.submeshes}.items():
+            f.write(f"newmtl {name}\n"
+                    f"Kd {' '.join(map(repr, m.base_color))}\n"
+                    f"Ks {' '.join(map(repr, m.specular))}\n"
+                    f"Ke {' '.join(map(repr, m.emission))}\n"
+                    f"Ns {m.specular_exponent!r}\nNi {m.refraction_index!r}\n"
+                    f"d {m.dissolve!r}\n")
+    lines = [f"mtllib {stem}.mtl"]
+    lines += ["v %.9g %.9g %.9g" % tuple(p) for p in model.positions.tolist()]
+    lines += ["vn %.9g %.9g %.9g" % tuple(n) for n in model.normals.tolist()]
+    for s in model.submeshes:
+        lines.append(f"usemtl {s.material_name}")
+        for p, n in zip((s.tri_pos_idx + 1).tolist(),
+                        (s.tri_norm_idx + 1).tolist()):
+            lines.append("f " + " ".join(f"{a}//{c}" for a, c in zip(p, n)))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
