@@ -83,19 +83,24 @@ Phases, each of which raises (exit code != 0) on failure:
     share of the median and of the fastest round's wall;
 15. the exact tracers (``tracer="bvh"``, the JAX package's own path off a
     TPU): ``closest_bvh_kernel`` and ``any_bvh_kernel`` (``csrc/
-    trace_bvh.cu``, no Pallas counterpart: the jnp packet walk of
-    ``metal_raytracing_tpu/ops/trace.py``) on dragon's and coatball's
-    recorded primary and bounce-1 passes, against their plain packet
+    trace_bvh.cu``, warp-cooperative, no Pallas counterpart: the jnp
+    packet walk of ``metal_raytracing_tpu/ops/trace.py``), with no spill
+    (on phase 1's ptxas lines), on dragon's and coatball's recorded primary and bounce-1
+    passes: bit for bit (t, u, v and slot; the flags) against the plain
+    versions that walk as they do (``closest_bvh_walk_ref``,
+    ``any_bvh_walk_ref``) on every ray, against their plain packet
     versions and the brute force on every 16th ray and against K1-K4 on
     every ray (found masks and flags equal, t within rtol 1e-5, sources
     equal on >= 99.9% of live rays apart from ties with the global set,
-    every mismatch a near-tie), each kernel's ms beside the cluster
-    kernel's on the same pass, its bound and the plain packet walk's ms on
-    the strided rays; then dragon 1024x1024 with ``tracer="cuda"``,
-    ``tracer="bvh", compaction=True`` and ``tracer="bvh"`` in turns, two
-    rounds of 3 samples (ms/sample, device ms/sample, each bvh image
-    against the cuda image at the golden gate, the BVH kernels' launches),
-    and a 128x128 cross-check of the kernels' image against the plain
+    every mismatch a near-tie), each kernel's ms beside the
+    one-thread-per-ray kernels' recorded ms and the cluster kernel's on the
+    same pass, its bound, the walking plain version's ms and the plain
+    packet walk's ms on the strided rays; then dragon 1024x1024 with
+    ``tracer="cuda"``, ``tracer="bvh", compaction=True`` and
+    ``tracer="bvh"`` in turns, two rounds of 3 samples (ms/sample, device
+    ms/sample, each bvh image against the cuda image at the golden gate,
+    the BVH kernels' launches), and a 128x128 cross-check: the kernels'
+    image equal to the walking plain versions' and against the plain
     packet walk's;
 16. the cluster builders and the traversal telemetry, on dragon 1024x1024
     and coatball 1024x768: every builder (``sah_free``, ``sah``,
@@ -312,7 +317,12 @@ ONE_THREAD_MS = {"K1": (0.855, 2.441, 2.215), "K2": (1.466, 2.477, 1.730),
                  "K3": (4.983, 10.616, 7.696), "K4": (4.351, 6.405, 4.784),
                  "K3 sorted": (6.059, 3.800), "K4 sorted": (2.340, 1.900),
                  "K3 seeded": (5.371, 3.140), "K6": (1.353, 0.662),
-                 "K5": (0.667, 0.673, 0.040, 0.042)}
+                 "K5": (0.667, 0.673, 0.040, 0.042),
+                 # the exact tracers' kernels before their redesign
+                 # (variant_bench.py --bvh): dragon primary / bounce 1,
+                 # coatball primary / bounce 1
+                 "BVH closest": (2.723, 8.015, 0.981, 3.019),
+                 "BVH any": (4.080, 5.482, 1.395, 2.259)}
 
 
 def log(msg: str) -> None:
@@ -701,6 +711,11 @@ def walk_tracers(data, spec):
     return closest, any_hit
 
 
+def _was(before) -> str:
+    """The one-thread-per-ray kernel's recorded ms, for a log line."""
+    return "" if before is None else f" (one thread per ray: {before:.3f} ms)"
+
+
 def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
     """K1 or K3 against the plain version that walks, on every ray."""
     import torch
@@ -726,13 +741,12 @@ def check_walk_closest(name, args, data, spec, seed_base=None, before=None):
         hit.t.view(torch.int32), t_ref.view(torch.int32)))
     ms = cuda_ms(run, 10)
     bnd = walk_bound(visits, o.shape[0], int(m.sum()), data, spec, True)
-    was = "" if before is None else f" (one thread per ray: {before:.3f} ms)"
     log(f"  {name}: {int(m.sum())} live rays of {o.shape[0]}, every ray "
         f"checked: ids equal {match:.6f}, {n_bad} near-ties (worst exact-t "
         f"rel {worst:.3e}), max |t - t_plain| {err:.3e}, bit-equal "
-        f"{same_bits}; kernel {ms:.3f} "
-        f"ms{was}, walking plain {plain_ms:.3f} ms, bound of the walk's own "
-        f"work {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"{same_bits}; kernel {ms:.3f} ms{_was(before)}, walking plain "
+        f"{plain_ms:.3f} ms, bound of the walk's own work {bnd[0]:.4f} ms "
+        f"({bnd[1]}); "
         + visit_stats(visits, m, group_sizes(rounds, ncp), len(rounds)))
     assert match >= MIN_MATCH, f"{name}: ids equal on only {match:.6f}"
     assert worst <= NEAR_TIE_REL, f"{name}: mismatch is not a near-tie"
@@ -762,11 +776,10 @@ def check_walk_any(name, args, data, spec, before=None):
     same_bits = bool(torch.equal(occ, ref))
     ms = cuda_ms(run, 10)
     bnd = walk_bound(visits, o.shape[0], n_live, data, spec, False)
-    was = "" if before is None else f" (one thread per ray: {before:.3f} ms)"
     log(f"  {name}: {n_live} live rays of {o.shape[0]}, occluded "
         f"{int((ref & m).sum())}, every ray checked: flags equal "
-        f"{match:.6f}, bit-equal {same_bits}; kernel {ms:.3f} ms{was}, "
-        f"walking plain "
+        f"{match:.6f}, bit-equal {same_bits}; kernel {ms:.3f} "
+        f"ms{_was(before)}, walking plain "
         f"{plain_ms:.3f} ms, bound of the walk's own work {bnd[0]:.4f} ms "
         f"({bnd[1]}); " + visit_stats(visits, m, group_sizes(rounds, ncp),
                                       len(rounds)))
@@ -1611,12 +1624,35 @@ def flags_gate(name, args, occ, ref, data, spec, cross=False):
         f"{int((occ & m).sum())} occluded)")
 
 
-def check_bvh_closest(name, args, data, spec):
-    """closest_bvh_kernel on one recorded closest pass: against the plain
-    packet walk and the brute force on every CHECK_STRIDE-th ray, and
-    against K1 or K3 (the scene's cluster kernel, with the pass's seed) on
-    every ray; the kernel's and the cluster kernel's ms on the whole pass,
+def assert_bvh_no_spill() -> None:
+    """Fails when this process's kernel build (phase 1 logs its ptxas lines)
+    shows the BVH kernels spilling; a build loaded from the cache has no
+    log and passes."""
+    from metal_raytracing_tpu_torch.ops import _build
+
+    _build.load_library()
+    name, seen = None, set()
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("closest_bvh_kernel", "any_bvh_kernel")
+                         if k in line), None)
+        elif name and "spill" in line:
+            seen.add(name)
+            assert "0 bytes spill stores, 0 bytes spill loads" in line, (
+                f"{name} spills: {line.strip()}")
+    assert not _build.build_log or len(seen) == 2, seen
+
+
+def check_bvh_closest(name, args, data, spec, before=None):
+    """closest_bvh_kernel on one recorded closest pass: bit for bit against
+    the walking plain version on every ray; against the plain packet walk
+    and the brute force on every CHECK_STRIDE-th ray, and against K1 or K3
+    (the scene's cluster kernel, with the pass's seed) on every ray; the
+    kernel's and the cluster kernel's ms on the whole pass (``before``: the
+    one-thread-per-ray kernel's recorded ms), the walking plain version's,
     the plain packet walk's on the strided rays, and the bound."""
+    import torch
+
     from metal_raytracing_tpu_torch.ops import trace as PT
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
@@ -1624,12 +1660,18 @@ def check_bvh_closest(name, args, data, spec):
     geo, bvh = data.geometry, spec.bvh
     tabs = (geo, data.node_lo, data.node_hi, bvh)
     hit = PT.trace_closest(o, d, m, *tabs)
+    walk_ms, walk = cuda_call(lambda: PT.closest_bvh_walk_ref(o, d, m, *tabs))
+    bits = lambda h: [h.tri] + [x.view(torch.int32) for x in (h.t, h.u, h.v)]
+    same = [torch.equal(a, b) for a, b in zip(bits(hit), bits(walk))]
     so, sd, sm, _ = _strided(args, CHECK_STRIDE)
     sub = PT.trace_closest(so, sd, sm, *tabs)
     plain_ms, ref = cuda_call(lambda: PT.closest_packet_ref(so, sd, sm,
                                                             *tabs))
     brute = PT.trace_closest_bruteforce(so, sd, sm, geo)
-    log(f"  {name}: {int(m.sum())} live rays")
+    log(f"  {name}: {int(m.sum())} live rays ({int(walk.found.sum())} hits)")
+    log(f"    vs the walking plain version (every ray): slot, t, u, v "
+        f"bit-equal {same}")
+    assert all(same), f"{name}: not bit-equal to the walking plain version"
     _, _, err = bvh_gate(f"vs plain packet (every {CHECK_STRIDE}th)", so,
                          sd, sm, sub.t, sub.tri, ref.t, ref.tri, data,
                          bvh.global_base)
@@ -1649,16 +1691,21 @@ def check_bvh_closest(name, args, data, spec):
                                             data.clu_planes, data.tri_planes,
                                             bvh, seed), 5)
     bnd = bound(*bvh_work(o, d, m, data, spec, t_final=hit.t))
-    log(f"    closest_bvh_kernel {ms:.3f} ms ({k_name} {k_ms:.3f} ms on the "
-        f"same pass), bound {bnd[0]:.4f} ms ({bnd[1]}); plain packet walk "
-        f"{plain_ms:.3f} ms on the {int(sm.shape[0])} strided rays")
+    log(f"    closest_bvh_kernel {ms:.3f} ms{_was(before)} ({k_name} "
+        f"{k_ms:.3f} ms on the same pass), bound {bnd[0]:.4f} ms ({bnd[1]}, "
+        f"{bnd[0] / ms:.1%} of it); walking plain version {walk_ms:.3f} ms; "
+        f"plain packet walk {plain_ms:.3f} ms on the {int(sm.shape[0])} "
+        f"strided rays")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
-            "k_ms": k_ms, "plain_rays": int(sm.shape[0])}
+            "k_ms": k_ms, "plain_rays": int(sm.shape[0]),
+            "plain_walk_ms": walk_ms}
 
 
-def check_bvh_any(name, args, data, spec):
+def check_bvh_any(name, args, data, spec, before=None):
     """any_bvh_kernel on one recorded shadow pass, as
     :func:`check_bvh_closest` (K2 or K4 as the cluster kernel)."""
+    import torch
+
     from metal_raytracing_tpu_torch.ops import trace as PT
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
@@ -1666,12 +1713,17 @@ def check_bvh_any(name, args, data, spec):
     geo, bvh = data.geometry, spec.bvh
     tabs = (geo, data.node_lo, data.node_hi, bvh)
     occ = PT.trace_any(o, d, mt, m, *tabs)
+    walk_ms, walk = cuda_call(lambda: PT.any_bvh_walk_ref(o, d, mt, m,
+                                                          *tabs))
+    same = torch.equal(occ, walk)
     so, sd, smt, sm = _strided(args, CHECK_STRIDE)
     sub = PT.trace_any(so, sd, smt, sm, *tabs)
     plain_ms, ref = cuda_call(lambda: PT.any_packet_ref(so, sd, smt, sm,
                                                         *tabs))
     brute = PT.trace_any_bruteforce(so, sd, smt, sm, geo)
-    log(f"  {name}: {int(m.sum())} live rays")
+    log(f"  {name}: {int(m.sum())} live rays ({int(walk.sum())} occluded)")
+    log(f"    vs the walking plain version (every ray): flags equal {same}")
+    assert same, f"{name}: not bit-equal to the walking plain version"
     strided = (so, sd, smt, sm)
     flags_gate(f"vs plain packet (every {CHECK_STRIDE}th)", strided, sub,
                ref, data, spec)
@@ -1687,11 +1739,14 @@ def check_bvh_any(name, args, data, spec):
                                         data.clu_planes, data.tri_planes,
                                         bvh), 5)
     bnd = bound(*bvh_work(o, d, m, data, spec, max_t=mt, occ=occ))
-    log(f"    any_bvh_kernel {ms:.3f} ms ({k_name} {k_ms:.3f} ms on the same "
-        f"pass), bound {bnd[0]:.4f} ms ({bnd[1]}); plain packet walk "
-        f"{plain_ms:.3f} ms on the {int(sm.shape[0])} strided rays")
+    log(f"    any_bvh_kernel {ms:.3f} ms{_was(before)} ({k_name} {k_ms:.3f} "
+        f"ms on the same pass), bound {bnd[0]:.4f} ms ({bnd[1]}, "
+        f"{bnd[0] / ms:.1%} of it); walking plain version {walk_ms:.3f} ms; "
+        f"plain packet walk {plain_ms:.3f} ms on the {int(sm.shape[0])} "
+        f"strided rays")
     return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
-            "k_ms": k_ms, "plain_rays": int(sm.shape[0])}
+            "k_ms": k_ms, "plain_rays": int(sm.shape[0]),
+            "plain_walk_ms": walk_ms}
 
 
 def bvh_kernels():
@@ -1704,18 +1759,20 @@ def bvh_kernels():
     from metal_raytracing_tpu_torch.scenes import get_scene
     from metal_raytracing_tpu_torch.types import RenderConfig
 
+    assert_bvh_no_spill()
     out = {"closest": [], "any": []}
     for scene, (w, h) in (("dragon", DRAGON), ("coatball", COATBALL)):
         r = Renderer(get_scene(scene, w, h), RenderConfig(width=w, height=h),
                      device="cuda")
         calls = record_passes(r)
         for b in (0, 1):
+            i = len(out["closest"])
             out["closest"].append(check_bvh_closest(
                 f"{scene} {w}x{h} closest bounce {b}", calls["closest"][b],
-                r.data, r.spec))
+                r.data, r.spec, ONE_THREAD_MS["BVH closest"][i]))
             out["any"].append(check_bvh_any(
                 f"{scene} {w}x{h} any bounce {b}", calls["any"][b], r.data,
-                r.spec))
+                r.spec, ONE_THREAD_MS["BVH any"][i]))
         del calls, r
         torch.cuda.empty_cache()
     return out
@@ -1816,8 +1873,11 @@ def bvh_main_path(card, size):
 
 
 def bvh_cross_check(size):
-    """Phase 15 (c): the image through the BVH kernels against the image
-    through their plain packet versions, on the card."""
+    """Phase 15 (c): one sample's image through the BVH kernels equal to
+    its image through the walking plain versions, and against the image
+    through the plain packet versions, on the card."""
+    import torch
+
     from metal_raytracing_tpu_torch import renderer as R
     from metal_raytracing_tpu_torch.io.image import rmse
     from metal_raytracing_tpu_torch.ops import trace as PT
@@ -1829,7 +1889,17 @@ def bvh_cross_check(size):
     r = R.Renderer(get_scene("dragon", w, h), cfg, device="cuda")
     img = r.render(1)
     tabs = (r.data.geometry, r.data.node_lo, r.data.node_hi, r.spec.bvh)
+    kern, _ = R.render_sample(r.data, r.spec, cfg, r.offsets, 0, "bvh")
     before = launch_counts()
+    walk, _ = R.render_sample(
+        r.data, r.spec, cfg, r.offsets, 0, "bvh",
+        (lambda o, d, m, seed=None, seed_base=None: PT.closest_bvh_walk_ref(
+            o, d, m, *tabs),
+         lambda o, d, mt, m: PT.any_bvh_walk_ref(o, d, mt, m, *tabs)))
+    same = torch.equal(kern, walk)
+    log(f"  dragon {w}x{h} 1 spp bvh compaction=True: kernels' sample equal "
+        f"to the walking plain versions' {same}")
+    assert same, "the kernels' sample differs from the walking versions'"
     plain, _ = R.render_sample(
         r.data, r.spec, cfg, r.offsets, 0, "bvh",
         (lambda o, d, m, seed=None, seed_base=None: PT.closest_packet_ref(
@@ -3430,6 +3500,7 @@ def main() -> int:
             "max_abs_err": max(r["err"] for r in bvh[query]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "plain_rays": first["plain_rays"],
+            "plain_walk_ms": first["plain_walk_ms"],
             "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
             "library_ms": None})
     for query, name, line in (("closest", "closest_hier_kernel", 1139),

@@ -17,11 +17,15 @@ kernels of ``ops.trace_cuda`` with their packed keys and plane tables.
   implicit B-ary heap (children of ``node`` at ``node*B+1 ..``, leaves from
   ``first_leaf``), all blocks stepping in lockstep until every stack is
   empty.
-- :func:`trace_closest` and :func:`trace_any` run those plain versions for
+- :func:`closest_bvh_walk_ref` and :func:`any_bvh_walk_ref` walk as the
+  kernels do, each ray with its own stack: the plain versions that the
+  kernels equal bit for bit (the tests and ``chip_smoke.py`` use them).
+- :func:`trace_closest` and :func:`trace_any` run the packet versions for
   tensors on the CPU and launch ``closest_bvh_kernel`` / ``any_bvh_kernel``
-  (``csrc/trace_bvh.cu``, one thread per ray with its own stack) for
-  tensors on a CUDA device, where they never fall back.  Each counts its
-  launches in ``trace_closest.launches`` / ``trace_any.launches``.
+  (``csrc/trace_bvh.cu``: a walk per lane, each leaf served to every lane
+  of the warp that asks for it) for tensors on a CUDA device, where they
+  never fall back.  Each counts its launches in ``trace_closest.launches``
+  / ``trace_any.launches``.
 
 The JAX packet walk runs as a ``lax.while_loop`` on the device; in eager
 PyTorch each of its steps would wait for the host, so on the card it is a
@@ -46,8 +50,8 @@ from ..accel import BVHSpec
 from .intersect import BIG_T, Hit, moller_trumbore, ray_aabb, safe_inverse
 
 __all__ = ["Hit", "trace_closest_bruteforce", "trace_any_bruteforce",
-           "closest_packet_ref", "any_packet_ref", "trace_closest",
-           "trace_any", "MAX_STACK"]
+           "closest_packet_ref", "any_packet_ref", "closest_bvh_walk_ref",
+           "any_bvh_walk_ref", "trace_closest", "trace_any", "MAX_STACK"]
 
 # The kernels' per-thread stack (csrc/trace_bvh.cu kMaxStack):
 # BVHSpec.max_stack must fit.
@@ -334,6 +338,136 @@ def any_packet_ref(o, d, max_t, mask, geometry, node_lo, node_hi,
                 stack[inner] = rows
                 sp[inner] += cnt[:, -1]
     return occ.reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# The per-ray walk of the kernels, plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _leaf_chunks(geometry, spec: BVHSpec, rays, node):
+    """Rays ``rays`` (L,) at leaf nodes ``node`` (L,), in chunks whose
+    (rays x cluster_size) temporaries stay within the chunk size: yields
+    each chunk's rays and :func:`_leaf_rows`."""
+    step = max(1, _chunk_elems(rays.device) // spec.cluster_size)
+    for r0 in range(0, rays.shape[0], step):
+        yield (rays[r0:r0 + step],
+               *_leaf_rows(geometry, spec, node[r0:r0 + step]))
+
+
+def _pop(stack, sp, walking):
+    """Pop the top of each walking ray's stack: its node (long)."""
+    sp[walking] -= 1
+    return stack[walking, sp[walking]].long(), sp[walking]
+
+
+def _push(stack, sp, rays, push, items, *columns):
+    """Push ``items`` (I, B) where ``push`` (I, B), in column order, onto
+    the stacks of ``rays`` (I,); ``columns`` are (tensor, values) pairs
+    stacked beside the nodes.  The last stack column takes the rest."""
+    size = stack.shape[1] - 1
+    pos = torch.where(push, sp[rays, None] + push.long().cumsum(dim=1) - 1,
+                      size)
+    for table, values in ((stack, items.to(stack.dtype)),) + columns:
+        rows = table[rays]
+        rows.scatter_(1, pos, values)
+        table[rays] = rows
+    sp[rays] += push.sum(dim=1)
+
+
+def closest_bvh_walk_ref(o, d, mask, geometry, node_lo, node_hi,
+                         spec: BVHSpec) -> Hit:
+    """The closest walk of ``closest_bvh_kernel``, ray by ray: the plain
+    version that ``chip_smoke.py`` and the tests hold the kernel against bit
+    for bit.  Each ray keeps its own stack of (node, entry t), all rays
+    stepping in lockstep, one pop a step: the ``num_global`` global slots
+    first; a popped node whose entry lies beyond the best is culled; a leaf
+    replaces the best only with a strictly smaller t (the first slot wins a
+    tie); an internal node's children are slab-tested against the best and
+    pushed far first by the ray's own entry, equal entries in index order,
+    so the nearest is popped first.  Returns the exact :class:`Hit`."""
+    n, dev = o.shape[0], o.device
+    best = list(_init_best((n,), dev))
+    if spec.num_global:
+        def fold(rs, t, u, v, hit):
+            new = _min_update(tuple(x[rs] for x in best), t, u, v,
+                              hit & mask[rs, None], spec.global_base)
+            for x, y in zip(best, new):
+                x[rs] = y
+
+        _global_pass(o, d, mask, geometry, spec, fold)
+    inv = safe_inverse(d)
+    size = spec.max_stack
+    stack = torch.zeros((n, size + 1), dtype=torch.int32, device=dev)
+    entry = torch.full((n, size + 1), -BIG_T, device=dev)
+    sp = mask.long()  # the root, with entry -BIG_T
+    while True:
+        walking = (sp > 0).nonzero()[:, 0]
+        if walking.numel() == 0:
+            break
+        node, top = _pop(stack, sp, walking)
+        kept = ~(entry[walking, top] > best[0][walking])  # else culled
+        walking, node = walking[kept], node[kept]
+        leaf = node >= spec.first_leaf
+        for rays, v0, e1, e2, base in _leaf_chunks(geometry, spec,
+                                                   walking[leaf], node[leaf]):
+            t, u, v, hit = moller_trumbore(o[rays, None], d[rays, None], v0,
+                                           e1, e2)
+            new = _min_update(tuple(x[rays] for x in best), t, u, v, hit,
+                              base)
+            for x, y in zip(best, new):
+                x[rays] = y
+        inner, node = walking[~leaf], node[~leaf]
+        if inner.numel() == 0:
+            continue
+        lo, hi, kids = _children(node_lo, node_hi, spec, node)
+        tn, hit = ray_aabb(o[inner, None], inv[inner, None], lo, hi,
+                           best[0][inner, None])
+        # far first; a stable sort keeps equal entries in index order
+        order = torch.argsort(torch.where(hit, -tn, float("inf")), dim=1,
+                              stable=True)
+        _push(stack, sp, inner, hit.gather(1, order), kids.gather(1, order),
+              (entry, tn.gather(1, order)))
+    return Hit(t=best[0], u=best[1], v=best[2], tri=best[3])
+
+
+def any_bvh_walk_ref(o, d, max_t, mask, geometry, node_lo, node_hi,
+                     spec: BVHSpec) -> torch.Tensor:
+    """The any walk of ``any_bvh_kernel``, ray by ray (as
+    :func:`closest_bvh_walk_ref`): the global slots, then a depth-first
+    walk with the children slab-tested against ``max_t`` and pushed in
+    index order, each ray leaving at its first occluder within (1e-6,
+    max_t].  Returns (N,) bool."""
+    n, dev = o.shape[0], o.device
+    occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if spec.num_global:
+        def fold(rs, t, u, v, hit):
+            occ[rs] = (hit & (t <= max_t[rs, None]) & mask[rs, None]).any(1)
+
+        _global_pass(o, d, mask, geometry, spec, fold)
+    inv = safe_inverse(d)
+    stack = torch.zeros((n, spec.max_stack + 1), dtype=torch.int32,
+                        device=dev)
+    sp = (mask & ~occ).long()  # the root
+    while True:
+        walking = ((sp > 0) & ~occ).nonzero()[:, 0]
+        if walking.numel() == 0:
+            break
+        node, _ = _pop(stack, sp, walking)
+        leaf = node >= spec.first_leaf
+        for rays, v0, e1, e2, _ in _leaf_chunks(geometry, spec,
+                                                walking[leaf], node[leaf]):
+            hit = moller_trumbore(o[rays, None], d[rays, None], v0, e1, e2,
+                                  t_max=max_t[rays, None])[3]
+            occ[rays] = hit.any(dim=1)
+        inner, node = walking[~leaf], node[~leaf]
+        if inner.numel() == 0:
+            continue
+        lo, hi, kids = _children(node_lo, node_hi, spec, node)
+        _, hit = ray_aabb(o[inner, None], inv[inner, None], lo, hi,
+                          max_t[inner, None])
+        _push(stack, sp, inner, hit, kids)
+    return occ
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 in turns inside one process on one CUDA GPU.
 
     python3 metal_raytracing_tpu_torch/utils/variant_bench.py \\
-        [--flat | --rank | --broadphase] [--render] [--padded NAME ...] \\
-        [--no-options NAME ...] [NAME=DIR ...]
+        [--flat | --rank | --broadphase | --bvh] [--render] \\
+        [--padded NAME ...] [--no-options NAME ...] [NAME=DIR ...]
 
 By default the hierarchical kernels K3/K4: each ``DIR`` holds a
 ``trace_hier.cu`` and the headers it includes, and the passes are dragon
@@ -13,15 +13,19 @@ By default the hierarchical kernels K3/K4: each ``DIR`` holds a
 With ``--rank`` the rank walk K6 (``trace_rank.cu``) on dragon's sorted
 bounce-1 and bounce-2 passes at ``compaction=True, rank_trace=2``; with
 ``--broadphase`` the broad phase K5 (``broadphase.cu``) in its four modes
-on dragon's primary closest and shadow passes.  A ``DIR`` is the ``csrc/``
-of an earlier commit unpacked with ``git archive``, or an edited copy of
-this checkout's.  Every variant is built with the checkout's nvcc flags
-into ``build/variants/NAME.so`` and must export the checkout's entry points
-(``launch_closest_hier`` / ``launch_any_hier``, ``launch_closest_flat`` /
-``launch_any_flat``, ``launch_closest_rank`` or ``launch_broadphase``);
-``tree`` names the checkout's own kernels.  ``--padded NAME`` gives
-variant NAME's K2 the global set's 128-slot padded width (the TPU kernel's
-chunk) in place of the real slot count that the wrapper passes.
+on dragon's primary closest and shadow passes; with ``--bvh`` the exact
+tracers' kernels ``closest_bvh_kernel`` / ``any_bvh_kernel``
+(``trace_bvh.cu``) on dragon 1024x1024's and coatball 1024x768's passes.
+A ``DIR`` is the ``csrc/`` of an earlier commit unpacked with ``git
+archive``, or an edited copy of this checkout's.  Every variant is built
+with the checkout's nvcc flags into ``build/variants/NAME.so`` and must
+export the checkout's entry points (``launch_closest_hier`` /
+``launch_any_hier``, ``launch_closest_flat`` / ``launch_any_flat``,
+``launch_closest_rank``, ``launch_broadphase`` or ``launch_closest_bvh`` /
+``launch_any_bvh``); ``tree`` names the checkout's own kernels.
+``--padded NAME`` gives variant NAME's K2 the global set's 128-slot padded
+width (the TPU kernel's chunk) in place of the real slot count that the
+wrapper passes.
 ``--no-options NAME``: variant NAME's K1-K4 / K6 entry points take no
 ``counts`` and ``visits`` arguments (the signatures before the kernels had
 those options, as in an older commit's ``csrc/``); the swap drops the two
@@ -46,8 +50,11 @@ arguments, which the timed passes leave null.  The script prints
   before its timed window):
   dragon at ``compaction=False`` and at ``compaction=True,
   fused_broadphase=True`` (K3/K4), at ``compaction=True, rank_trace=2``
-  (K6) or at ``compaction=True, fused_broadphase=True`` (K5), or coatball
-  at the default config (K1/K2).
+  (K6) or at ``compaction=True, fused_broadphase=True`` (K5), coatball
+  at the default config (K1/K2), or dragon at ``tracer="bvh"`` (the BVH
+  kernels).  Each turn restarts the image, so every turn's image holds the
+  same samples: the script prints whether it equals the first turn's, and
+  with ``--bvh`` raises when it does not.
 
 Two cards or two calls differ by more than most variants do: compare only
 the numbers of one run.
@@ -63,6 +70,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
@@ -77,6 +86,7 @@ KERNELS = {
     "flat": ("trace_flat.cu", ("launch_closest_flat", "launch_any_flat")),
     "rank": ("trace_rank.cu", ("launch_closest_rank",)),
     "broadphase": ("broadphase.cu", ("launch_broadphase",)),
+    "bvh": ("trace_bvh.cu", ("launch_closest_bvh", "launch_any_bvh")),
 }
 # the main-path configs --render times for each family
 RENDERS = {
@@ -85,6 +95,7 @@ RENDERS = {
     "flat": (("default config", {}),),
     "rank": (("compaction=True rank_trace=2", SLICE),),
     "broadphase": (("compaction=True fused_broadphase=True", FUSED),),
+    "bvh": (("tracer=bvh", dict(tracer="bvh")),),
 }
 G_SLOTS_ARG = 11  # launch_any_flat's g_slots
 # the argument indexes of `counts` and `visits` in each entry point that
@@ -235,6 +246,29 @@ def shuffled(args):
     return tuple(a[perm].contiguous() for a in args)
 
 
+def gather_bvh_passes():
+    """name -> (kind, args, tables) of dragon 1024x1024's and coatball
+    1024x768's recorded passes for the BVH kernels: ``closest`` args (o, d,
+    mask), ``any`` args (o, d, max_t, mask); tables (geometry, node_lo,
+    node_hi, spec)."""
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    passes = {}
+    for scene, (w, h) in (("dragon", (SIZE, SIZE)), ("coatball", COATBALL)):
+        r = Renderer(get_scene(scene, w, h), RenderConfig(width=w, height=h),
+                     device="cuda")
+        tabs = (r.data.geometry, r.data.node_lo, r.data.node_hi, r.spec.bvh)
+        calls = record_passes(r)
+        for b, (o, d, m, _) in enumerate(calls["closest"]):
+            passes[f"{scene} closest bounce {b}"] = ("closest", (o, d, m),
+                                                     tabs)
+        for b, args in enumerate(calls["any"]):
+            passes[f"{scene} any bounce {b}"] = ("any", args, tabs)
+    return passes
+
+
 def gather_passes(flat: bool):
     """name -> (kind, args): ``closest`` args (o, d, mask, seed, seed_base),
     ``any`` args (o, d, max_t, mask); and the plane tables."""
@@ -299,25 +333,53 @@ def _cells_text(cells, extra):
                      for i, (n, fwd) in enumerate(cells[:half]))
 
 
-def time_passes(lib, libs, card, entries, padded, flat, no_options=()):
+def _pass_runs(family):
+    """label -> (live mask, run): each recorded pass of the family's kernels
+    as a function of no arguments that returns the outputs' bits."""
     import torch
 
+    from metal_raytracing_tpu_torch.ops import trace as PT
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 
-    passes, tabs = gather_passes(flat)
+    runs = {}
+    if family == "bvh":
+        for label, (kind, args, tabs) in gather_bvh_passes().items():
+            if kind == "closest":
+                def run(args=args, tabs=tabs):
+                    hit = PT.trace_closest(*args, *tabs)
+                    return torch.stack([hit.tri] + [
+                        x.view(torch.int32) for x in (hit.t, hit.u, hit.v)],
+                        dim=1)
+            else:
+                run = lambda args=args, tabs=tabs: PT.trace_any(*args, *tabs)
+            runs[label] = (args[-1] if kind == "any" else args[2], run)
+        return runs
+    passes, tabs = gather_passes(family == "flat")
     for label, (kind, args) in passes.items():
         if kind == "closest":
             o, d, m, seed, sbase = args
-            def run():
+
+            def run(o=o, d=d, m=m, seed=seed, sbase=sbase):
                 hit = TC.trace_closest(o, d, m, *tabs, seed, seed_base=sbase)
                 return torch.stack([hit.tri, hit.t.view(torch.int32)], dim=1)
         else:
             o, d, mt, m = args
-            run = lambda: TC.trace_any(o, d, mt, m, *tabs)
+            run = lambda o=o, d=d, mt=mt, m=m: TC.trace_any(o, d, mt, m, *tabs)
+        runs[label] = (m, run)
+    return runs
+
+
+def time_passes(lib, libs, card, entries, padded, family, no_options=()):
+    for label, (m, run) in _pass_runs(family).items():
         ref = run()
+
+        def equal_share():
+            same = run() == ref
+            return float((same.all(dim=1) if same.dim() > 1 else same)
+                         .float().mean())
+
         cells = in_turns(lib, libs, entries, lambda: (
-            float((run() == ref).float().mean()), cuda_ms(run)), padded,
-            no_options)
+            equal_share(), cuda_ms(run)), padded, no_options)
         text = _cells_text(cells, lambda n, f, bk: (
             f"{f[1]:.3f} / {bk[1]:.3f} ms"
             + ("" if n == "tree" else f" (equal {f[0]:.6f})")))
@@ -425,6 +487,7 @@ def time_renders(lib, libs, card, samples: int, entries, padded, family,
         r = Renderer(scene, RenderConfig(width=w, height=h, **kw),
                      device="cuda")
         seen = []  # every earlier turn's graphs (reset: they hold no pool)
+        images = []  # each turn's image of its first `samples` samples
 
         def measure():
             # A graph holds the kernels it was captured with, so each turn
@@ -432,7 +495,8 @@ def time_renders(lib, libs, card, samples: int, entries, padded, family,
             # variant's kernels, before its timed window: the warm-up
             # render takes the timed render's steps.
             r.drop_graphs()
-            r.render(samples)
+            r.reset()
+            images.append(r.render(samples))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render(samples)
@@ -447,13 +511,18 @@ def time_renders(lib, libs, card, samples: int, entries, padded, family,
             seen.extend(graphs)
             return ms, prof
 
-        for name, (ms, prof) in in_turns(lib, libs, entries, measure, padded,
-                                         no_options):
+        cells = in_turns(lib, libs, entries, measure, padded, no_options)
+        for (name, (ms, prof)), img in zip(cells, images):
             top = ", ".join(f"{k[:24]} {v / prof.samples:.3f}"
                             for k, v, _ in prof.kernels[:3])
+            same = bool(np.array_equal(img, images[0]))
             log(f"  {label}, {name}: {ms:.3f} ms/sample, device "
-                f"{prof.device_ms_per_sample:.3f} ms/sample ({top}); on "
-                f"{card}")
+                f"{prof.device_ms_per_sample:.3f} ms/sample ({top}); image "
+                f"of {samples} samples equal to the first turn's: {same}; "
+                f"on {card}")
+            if family == "bvh" and not same:
+                raise RuntimeError(f"{label}, {name}: the image differs from "
+                                   "the first turn's")
 
 
 def main() -> int:
@@ -470,6 +539,9 @@ def main() -> int:
                        const="rank", help="K6 on dragon's sorted passes")
     which.add_argument("--broadphase", action="store_const", dest="family",
                        const="broadphase", help="K5 in its four modes")
+    which.add_argument("--bvh", action="store_const", dest="family",
+                       const="bvh", help="the exact tracers' kernels on "
+                       "dragon's and coatball's passes")
     ap.add_argument("--render", action="store_true",
                     help="also time the main path with each variant")
     ap.add_argument("--padded", action="append", default=[], metavar="NAME",
@@ -507,8 +579,8 @@ def main() -> int:
     elif args.family == "broadphase":
         time_broadphase(lib, libs, card, entries)
     else:
-        time_passes(lib, libs, card, entries, padded,
-                    args.family == "flat", no_options)
+        time_passes(lib, libs, card, entries, padded, args.family,
+                    no_options)
     if args.render:
         log("main path, forwards then backwards:")
         time_renders(lib, libs, card, args.samples, entries, padded,
