@@ -1,0 +1,11 @@
+"""layer.shadow_trace.ms: device milliseconds a sample of the kernels launched
+inside the renderer's "shadow trace" span, from one eager sample under the
+profiler (each kernel to the innermost span that launched it)."""
+
+SCOPE = "shadow trace"
+
+
+def read(record):
+    t = record["trace"]
+    ms = t and t["scopes_ms"].get(SCOPE)
+    return ms or None

@@ -1,0 +1,11 @@
+"""layer.sort_keys.ms: device milliseconds a sample of the kernels launched
+inside the renderer's "sort keys" span, from one eager sample under the
+profiler (each kernel to the innermost span that launched it)."""
+
+SCOPE = "sort keys"
+
+
+def read(record):
+    t = record["trace"]
+    ms = t and t["scopes_ms"].get(SCOPE)
+    return ms or None
