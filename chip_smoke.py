@@ -3062,14 +3062,16 @@ def parse_phase(card):
     from metal_raytracing_tpu_torch.io import native, procedural
     from metal_raytracing_tpu_torch.io.obj import load_obj, write_obj
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
+    from metal_raytracing_tpu_torch.utils import profiling
 
-    t0 = time.perf_counter()
-    native.load_library()
+    with profiling.span_log() as spans:
+        native.load_library()
     cxx = native.compiler()  # $CXX, else c++, else g++
     version = subprocess.run([cxx, "--version"], capture_output=True,
                              text=True).stdout.splitlines()[0]
-    log(f"  parser build+load {time.perf_counter() - t0:.3f} s (compile "
-        f"{native.build_seconds:.3f} s) -> {native.BUILD_DIR}; {cxx} "
+    log(f"  parser build+load {spans.seconds('parser load'):.3f} s "
+        f"(compile {spans.seconds('parser build'):.3f} s) -> "
+        f"{native.BUILD_DIR}; {cxx} "
         f"(CXX={os.environ.get('CXX')}): "
         f"{version}; host {host_cpu()}; {card}")
     with tempfile.TemporaryDirectory() as res:
@@ -3150,6 +3152,7 @@ def main() -> int:
     from metal_raytracing_tpu_torch.renderer import Renderer
     from metal_raytracing_tpu_torch.scenes import get_scene
     from metal_raytracing_tpu_torch.types import RenderConfig
+    from metal_raytracing_tpu_torch.utils import profiling
 
     t_start = time.perf_counter()
     # ---- phase 1: card, versions, kernel build
@@ -3163,11 +3166,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {kind}")
-    t0 = time.perf_counter()
-    _build.load_library()
-    log(f"kernel build+load {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s, {len(_build.sources())} "
-        f"sources in parallel) -> {_build.BUILD_DIR}")
+    with profiling.span_log() as spans:
+        _build.load_library()
+    log(f"kernel build+load {spans.seconds('kernel load'):.2f} s "
+        f"(nvcc {spans.seconds('kernel build'):.2f} s, "
+        f"{len(_build.sources())} sources in parallel) -> "
+        f"{_build.BUILD_DIR}")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")

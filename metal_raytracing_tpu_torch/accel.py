@@ -25,6 +25,8 @@ from typing import Optional
 
 import numpy as np
 
+from .utils.profiling import named_scope
+
 __all__ = ["BVHSpec", "BUILDERS", "morton_codes_3d", "build_cluster_bvh",
            "sah_split_order", "median_split_order", "sah_free_clusters",
            "ploc_clusters", "presplit_references"]
@@ -595,6 +597,7 @@ def presplit_references(
     return src, ref_lo - pad, ref_hi + pad
 
 
+@named_scope("bvh build")
 def build_cluster_bvh(
     v0: np.ndarray,
     e1: np.ndarray,

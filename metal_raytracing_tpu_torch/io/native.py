@@ -21,10 +21,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import List, Optional
 
 import numpy as np
+
+from ..utils.profiling import named_scope
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "native", "objparse.cpp")
@@ -36,9 +37,6 @@ _OPT_OUT = ("set MRT_NO_NATIVE=1 or pass use_native=False to load_obj to "
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# Wall seconds of the build in this process (0.0 when the library was
-# already built).
-build_seconds = 0.0
 
 
 def compiler() -> str:
@@ -62,10 +60,8 @@ def _library_path(cxx: str) -> str:
 
 
 def _build(cxx: str, out: str) -> None:
-    global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
     try:
         proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
                               capture_output=True, text=True, timeout=300)
@@ -79,45 +75,51 @@ def _build(cxx: str, out: str) -> None:
             f"{cxx} failed ({proc.returncode}) to build the native OBJ "
             f"parser:\n{proc.stdout}{proc.stderr}\n{_OPT_OUT}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
-    build_seconds = time.perf_counter() - t0
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (when needed) and load the native parser."""
-    global _lib
+    """Build (when needed) and load the native parser: the ``parser load``
+    span, with ``parser build`` inside it where the compiler runs."""
     with _lock:
         if _lib is not None:
             return _lib
-        cxx = compiler()
-        path = _library_path(cxx)
-        if not os.path.isfile(path):
+        with named_scope("parser load"):
+            return _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    cxx = compiler()
+    path = _library_path(cxx)
+    if not os.path.isfile(path):
+        with named_scope("parser build"):
             _build(cxx, path)
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError as e:
-            raise RuntimeError(f"could not load the native OBJ parser {path} "
-                               f"({e}); {_OPT_OUT}") from e
-        lib.obj_parse.restype = ctypes.c_void_p
-        lib.obj_parse.argtypes = [ctypes.c_char_p]
-        lib.obj_counts.argtypes = [ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_int64)]
-        lib.obj_vertices.argtypes = [ctypes.c_void_p] + [
-            ctypes.POINTER(ctypes.c_float)] * 3
-        lib.obj_submesh_tris.restype = ctypes.c_int64
-        lib.obj_submesh_tris.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.obj_submesh_material.restype = ctypes.c_char_p
-        lib.obj_submesh_material.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.obj_submesh_indices.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32)]
-        lib.obj_mtllib_count.restype = ctypes.c_int64
-        lib.obj_mtllib_count.argtypes = [ctypes.c_void_p]
-        lib.obj_mtllib.restype = ctypes.c_char_p
-        lib.obj_mtllib.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.obj_free.argtypes = [ctypes.c_void_p]
-        _lib = lib
-        return _lib
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise RuntimeError(f"could not load the native OBJ parser {path} "
+                           f"({e}); {_OPT_OUT}") from e
+    lib.obj_parse.restype = ctypes.c_void_p
+    lib.obj_parse.argtypes = [ctypes.c_char_p]
+    lib.obj_counts.argtypes = [ctypes.c_void_p,
+                               ctypes.POINTER(ctypes.c_int64)]
+    lib.obj_vertices.argtypes = [ctypes.c_void_p] + [
+        ctypes.POINTER(ctypes.c_float)] * 3
+    lib.obj_submesh_tris.restype = ctypes.c_int64
+    lib.obj_submesh_tris.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.obj_submesh_material.restype = ctypes.c_char_p
+    lib.obj_submesh_material.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.obj_submesh_indices.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.obj_mtllib_count.restype = ctypes.c_int64
+    lib.obj_mtllib_count.argtypes = [ctypes.c_void_p]
+    lib.obj_mtllib.restype = ctypes.c_char_p
+    lib.obj_mtllib.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.obj_free.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return _lib
 
 
 class NativeObj:

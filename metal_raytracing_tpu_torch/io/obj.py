@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..types import Material
+from ..utils.profiling import named_scope
 
 
 @dataclasses.dataclass
@@ -159,11 +160,13 @@ def load_obj(path: str, compute_normals: bool = True,
     """
     if use_native is None:
         use_native = not os.environ.get("MRT_NO_NATIVE")
-    if use_native:
-        from .native import parse_obj_native
+    with named_scope("obj parse"):
+        if use_native:
+            from .native import parse_obj_native
 
-        return _from_native(parse_obj_native(path), path, compute_normals)
-    return _load_obj_python(path, compute_normals)
+            return _from_native(parse_obj_native(path), path,
+                                compute_normals)
+        return _load_obj_python(path, compute_normals)
 
 
 def _from_native(raw, path: str, compute_normals: bool) -> LoadedModel:

@@ -22,8 +22,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import Optional
+
+from ..utils.profiling import named_scope
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -35,10 +36,8 @@ NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # Set by the first build in this process: nvcc's register / spill report
-# (``-Xptxas -v``) and the build's wall time in seconds (0.0 when the
-# library was already built).
+# (``-Xptxas -v``).
 build_log = ""
-build_seconds = 0.0
 
 
 def _nvcc() -> str:
@@ -68,10 +67,9 @@ def _library_path() -> str:
 
 
 def _build(out: str) -> None:
-    global build_log, build_seconds
+    global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
-    t0 = time.perf_counter()
     nvcc = _nvcc()
     srcs = sources()
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
@@ -96,41 +94,47 @@ def _build(out: str) -> None:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
-    build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (when needed) and load the kernel library."""
-    global _lib
+    """Build (when needed) and load the kernel library: the ``kernel
+    load`` span, with ``kernel build`` inside it where nvcc runs."""
     with _lock:
         if _lib is not None:
             return _lib
-        path = _library_path()
-        if not os.path.isfile(path):
+        with named_scope("kernel load"):
+            return _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    path = _library_path()
+    if not os.path.isfile(path):
+        with named_scope("kernel build"):
             _build(path)
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # K1-K4 and K6: `counts` before the outputs, `visits` after them
-        lib.launch_closest_flat.argtypes = [p] * 6 + [i] * 5 + [p] * 5
-        lib.launch_closest_flat.restype = i
-        lib.launch_any_flat.argtypes = [p] * 6 + [i] * 6 + [p] * 4
-        lib.launch_any_flat.restype = i
-        lib.launch_closest_hier.argtypes = [p] * 8 + [i] * 6 + [p] * 5
-        lib.launch_closest_hier.restype = i
-        lib.launch_closest_hier_baked.argtypes = [p] * 7 + [i] * 6 + [p] * 5
-        lib.launch_closest_hier_baked.restype = i
-        lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 4
-        lib.launch_any_hier.restype = i
-        lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]
-        lib.launch_broadphase.restype = i
-        lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 5
-        lib.launch_closest_rank.restype = i
-        lib.launch_closest_bvh.argtypes = [p] * 8 + [i] * 7 + [p] * 5
-        lib.launch_closest_bvh.restype = i
-        lib.launch_any_bvh.argtypes = [p] * 9 + [i] * 7 + [p] * 2
-        lib.launch_any_bvh.restype = i
-        lib.kernels_error_string.argtypes = [i]
-        lib.kernels_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # K1-K4 and K6: `counts` before the outputs, `visits` after them
+    lib.launch_closest_flat.argtypes = [p] * 6 + [i] * 5 + [p] * 5
+    lib.launch_closest_flat.restype = i
+    lib.launch_any_flat.argtypes = [p] * 6 + [i] * 6 + [p] * 4
+    lib.launch_any_flat.restype = i
+    lib.launch_closest_hier.argtypes = [p] * 8 + [i] * 6 + [p] * 5
+    lib.launch_closest_hier.restype = i
+    lib.launch_closest_hier_baked.argtypes = [p] * 7 + [i] * 6 + [p] * 5
+    lib.launch_closest_hier_baked.restype = i
+    lib.launch_any_hier.argtypes = [p] * 7 + [i] * 7 + [p] * 4
+    lib.launch_any_hier.restype = i
+    lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]
+    lib.launch_broadphase.restype = i
+    lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 5
+    lib.launch_closest_rank.restype = i
+    lib.launch_closest_bvh.argtypes = [p] * 8 + [i] * 7 + [p] * 5
+    lib.launch_closest_bvh.restype = i
+    lib.launch_any_bvh.argtypes = [p] * 9 + [i] * 7 + [p] * 2
+    lib.launch_any_bvh.restype = i
+    lib.kernels_error_string.argtypes = [i]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ..accel import BVHSpec
+from ..utils.profiling import named_scope
 from .intersect import BIG_T, Hit
 
 __all__ = ["pack_triangle_planes", "pack_scene_planes", "super_layout",
@@ -193,6 +194,7 @@ def _use_flat(spec: BVHSpec, flat=None) -> bool:
     return s * ns <= FLAT_MAX_CLUSTERS
 
 
+@named_scope("pack planes")
 def pack_scene_planes(v0, e1, e2, node_lo, node_hi, spec: BVHSpec):
     """Scene repack into the kernel layouts: ``(sup (nsp, 6), clu (NS, S, 6),
     tri (12, T))``.  Boxes are ``[lo(3), hi(3)]`` rows; padding clusters and

@@ -64,6 +64,7 @@ from .ops.broadphase_cuda import (BROADPHASE_MAX_CLUSTERS, NC_IDM,
 from .ops.intersect import Hit
 from .scene import Scene, SceneData, SceneSpec
 from .types import RenderConfig
+from .utils import profiling
 from .utils.profiling import named_scope
 
 __all__ = ["render_sample", "render_rays", "pixel_coords", "accumulate",
@@ -82,9 +83,10 @@ EXACT_TRACERS = ("bvh", "bruteforce")
 
 def make_pixel_offsets(cfg: RenderConfig, device="cpu") -> torch.Tensor:
     """Per-pixel Halton index offsets, (H*W,) int32 in [0, 2^bits)."""
-    return sampling.pixel_decorrelation_offsets(
-        cfg.seed, cfg.height * cfg.width, bits=cfg.rand_offset_bits,
-        device=device)
+    with named_scope("pixel offsets"):
+        return sampling.pixel_decorrelation_offsets(
+            cfg.seed, cfg.height * cfg.width, bits=cfg.rand_offset_bits,
+            device=device)
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
@@ -181,8 +183,9 @@ def bake_tables(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     (:func:`_bakes`)."""
     if not _bakes(spec, cfg, tracer):
         return None
-    return trace_cuda.bake_origin(data.sup_planes, data.clu_planes,
-                                  data.tri_planes, data.camera.position)
+    with named_scope("bake"):
+        return trace_cuda.bake_origin(data.sup_planes, data.clu_planes,
+                                      data.tri_planes, data.camera.position)
 
 
 def make_tracers(data: SceneData, spec: SceneSpec, tracer: str,
@@ -1103,9 +1106,9 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                     torch.where(refl_t[:, None], n_eff, -n_eff), ns)
                 o_next = pos + off_n * 1e-3
 
-        with named_scope("sort keys"):
-            pair_scid = pair_bp = None
-            if pair_at(bounce):
+        pair_scid = pair_bp = None
+        if pair_at(bounce):
+            with named_scope("sort keys"):
                 rank_next = rank_at_sort(bounce + 1)
                 res = nearest_cluster_pair(
                     shadow_o, ls.direction, sdist, kernel_shadow, d_next,
@@ -1139,6 +1142,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
 
     carried_bp = None
     for bounce in range(cfg.max_bounces):
+        profiling.mark_bounce(bounce)
         known_miss = rank_keys = None
         if sorts_at(bounce):
             with named_scope("sort keys"):
@@ -1215,13 +1219,27 @@ class Renderer:
     place: ``accum``, ``ray_totals`` and ``frame``, the device copy of the
     host's ``frame_index``.  :meth:`reset` and the checkpoint loads write
     them in place; :meth:`refine` rebuilds the tables the graphs read, so
-    it drops them.  A failed capture raises."""
+    it drops them.  A failed capture raises.
+
+    With :meth:`set_marks` on, each graph also records a device timestamp
+    at the entry and the exit of every layer scope of its samples
+    (``utils.profiling.LayerMarks``, kept with the graph), and
+    :meth:`layer_ms` reads the layers' device ms of the last replay.
+
+    Set-up runs inside the scopes ``cuda init`` (the first touch of a CUDA
+    device, before the upload), ``scene build``, ``bake``, ``pixel
+    offsets``, ``warm-up sample`` and ``graph capture``, which
+    ``utils.profiling.span_log`` logs where one is open."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig, device="cuda"):
         self.scene = scene
         self.cfg = cfg
         self.device = torch.device(device)
         self.tracer = resolve_tracer(cfg, self.device)
+        if self.device.type == "cuda":
+            with named_scope("cuda init"):
+                torch.empty((1,), device=self.device)
+                torch.cuda.synchronize(self.device)
         self.data, self.spec = scene.build(
             cluster_size=cfg.cluster_size, builder=cfg.bvh_builder,
             presplit=cfg.bvh_presplit, builder_alpha=cfg.bvh_alpha,
@@ -1236,6 +1254,9 @@ class Renderer:
         self.graphed = graphs_apply(cfg, self.device, self.tracer)
         self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
         self._pool = None
+        self.marked = False  # graphs captured from now on carry marks
+        self.graph_marks: Dict[int, profiling.LayerMarks] = {}
+        self._last_k: Optional[int] = None
         self.accum = torch.zeros((cfg.height, cfg.width, 3),
                                  dtype=torch.float32, device=self.device)
         self.ray_totals = torch.zeros((2,), dtype=torch.float32,
@@ -1259,6 +1280,7 @@ class Renderer:
         if self.graphed:
             with torch.cuda.device(self.device):
                 self.graph(k).replay()
+            self._last_k = k
         else:
             for _ in range(k):
                 self._sample()
@@ -1279,32 +1301,71 @@ class Renderer:
         (capturing runs nothing on the card).  Before the first capture
         into a pool, one eager sample on scratch state warms up on a side
         stream (PyTorch's whole-network recipe): it builds and loads the
-        kernels, whose launches then hold no first-use work."""
+        kernels, whose launches then hold no first-use work.  It ends with
+        a fence, so its device time stays in its own span (the capture
+        would wait for it anyway)."""
         if k in self.graphs:
             return self.graphs[k]
         with torch.cuda.device(self.device):
             if self._pool is None:
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    sample, _ = render_sample(
-                        self.data, self.spec, self.cfg, self.offsets,
-                        self.frame, self.tracer, baked_tables=self.baked)
-                    accumulate(self.accum, sample, self.frame)
-                torch.cuda.current_stream().wait_stream(side)
+                with named_scope("warm-up sample"):
+                    side = torch.cuda.Stream()
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        sample, _ = render_sample(
+                            self.data, self.spec, self.cfg, self.offsets,
+                            self.frame, self.tracer, baked_tables=self.baked)
+                        accumulate(self.accum, sample, self.frame)
+                    torch.cuda.current_stream().wait_stream(side)
+                    torch.cuda.synchronize(self.device)
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool):
-                for _ in range(k):
+            marks = profiling.LayerMarks() if self.marked else None
+            with (named_scope("graph capture"),
+                  torch.cuda.graph(graph, pool=self._pool),
+                  profiling.marking(marks)):
+                for i in range(k):
+                    if marks is not None:
+                        marks.sample, marks.bounce = i, 0
                     self._sample()
         self.graphs[k] = graph
+        if marks is not None:
+            self.graph_marks[k] = marks
         return graph
 
     def drop_graphs(self) -> None:
-        """Forget the captured graphs: the next step of each k captures
-        anew (after a warm-up sample), with the kernels and tables bound
-        then."""
-        self.graphs, self._pool = {}, None
+        """Forget the captured graphs (and their marks): the next step of
+        each k captures anew (after a warm-up sample), with the kernels and
+        tables bound then."""
+        self.graphs, self._pool, self.graph_marks = {}, None, {}
+
+    def set_marks(self, on: bool = True) -> None:
+        """Capture the graphs from now on with layer marks (``on``) or
+        without: the graphs captured before are dropped where this changes
+        anything.  Without marks a graph holds the samples' kernels alone;
+        with them it also holds an event-record node at the entry and the
+        exit of every layer scope.  Only a ``graphed`` renderer captures
+        graphs: elsewhere turning them on raises ``ValueError``."""
+        if on and not self.graphed:
+            raise ValueError("layer marks live in captured CUDA graphs; "
+                             "this renderer runs its samples eagerly")
+        if on != self.marked:
+            self.marked = on
+            self.drop_graphs()
+
+    def layer_ms(self) -> Dict[str, float]:
+        """Device ms a sample of each layer in the last replay, from its
+        graph's marks: each stretch between two marks goes to the
+        innermost layer scope open there, bubbles included, and
+        ``"unmarked"`` holds what no layer scope covers.  What a viewer
+        would print after a step.  Waits for the device to finish that
+        replay.  Raises ``RuntimeError`` where the last step replayed no
+        marked graph."""
+        marks = self.graph_marks.get(self._last_k)
+        if marks is None:
+            raise RuntimeError("no marked replay to read: set_marks(True), "
+                               "then step()")
+        return marks.layer_ms()
 
     def refine(self, stride: int = 64) -> bool:
         """Rebuild the clusters to this render's measured rays, then go on

@@ -24,6 +24,7 @@ from .ops.trace_cuda import fma, pack_scene_planes
 from .types import (Camera, Light, LightTable, Material, MaterialTable,
                     area_light, make_camera, pack_lights, pack_materials,
                     spot_light)
+from .utils.profiling import named_scope
 
 __all__ = ["GeometryTable", "SceneData", "SceneSpec", "Instance", "Scene",
            "flatten_instances", "subdivide_oversized", "build_scene_data",
@@ -252,6 +253,7 @@ def _pack_textures(materials: Sequence[Material]):
     return torch.from_numpy(stack), torch.from_numpy(hw)
 
 
+@named_scope("scene build")
 def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
                      camera: Camera, cluster_size: int = 384,
                      branching: int = 8, env_map: Optional[np.ndarray] = None,
@@ -305,19 +307,21 @@ def build_scene_data(instances: Sequence[Instance], lights: Sequence[Light],
         tex_stack, tex_hw = _pack_textures(materials)
 
     to = lambda x: None if x is None else x.to(device)
-    data = SceneData(
-        geometry=GeometryTable(*(to(getattr(geometry, f.name))
-                                 for f in dataclasses.fields(geometry))),
-        node_lo=to(node_lo_t), node_hi=to(node_hi_t),
-        lights=light_table.to(device), materials=material_table.to(device),
-        camera=camera.to(device),
-        sup_planes=to(sup), clu_planes=to(clu), tri_planes=to(tri),
-        shade_table=to(shade_table),
-        tri_src=to(torch.from_numpy(order.astype(np.int32))),
-        clu_counts=to(torch.from_numpy(clu_counts)),
-        env_map=(None if env_map is None
-                 else to(torch.from_numpy(np.asarray(env_map, np.float32)))),
-        uv_table=to(uv_table), tex_stack=to(tex_stack), tex_hw=to(tex_hw))
+    with named_scope("upload"):
+        data = SceneData(
+            geometry=GeometryTable(*(to(getattr(geometry, f.name))
+                                     for f in dataclasses.fields(geometry))),
+            node_lo=to(node_lo_t), node_hi=to(node_hi_t),
+            lights=light_table.to(device),
+            materials=material_table.to(device), camera=camera.to(device),
+            sup_planes=to(sup), clu_planes=to(clu), tri_planes=to(tri),
+            shade_table=to(shade_table),
+            tri_src=to(torch.from_numpy(order.astype(np.int32))),
+            clu_counts=to(torch.from_numpy(clu_counts)),
+            env_map=(None if env_map is None else
+                     to(torch.from_numpy(np.asarray(env_map, np.float32)))),
+            uv_table=to(uv_table), tex_stack=to(tex_stack),
+            tex_hw=to(tex_hw))
     spec = SceneSpec(bvh=bvh_spec, light_count=light_table.count,
                      material_count=material_table.count,
                      has_env_map=env_map is not None,
