@@ -59,15 +59,23 @@ Phases, each of which raises (exit code != 0) on failure:
     K3 alone on the whole passes; K3 and K4 timed on the sorted rays and on
     the same rays in random order, and held against the walking plain
     versions on every ray of the sorted and the seeded passes;
-11. the exact broad phase (``nearest_cluster``, plain PyTorch) against K5's
-    two nearest keys on the same rays, and the time of each form of the
-    unfused chain beside K5's;
+11. the exact broad phase's kernel (``nearest_cluster_kernel``, behind
+    ``nearest_cluster`` / ``nearest_cluster_pair``) against its plain chain
+    on the same card, bit for bit, in every form (ranks 1-3, packed,
+    bounded, the super boxes, the pair with ranks 2 and 3) on the slice's
+    bounce-1 rays and shadow segments, with its registers, each form's
+    kernel ms by events and device ms from the profiler beside the plain
+    chain's and its bound, and its ranks 1-2 against K5's keys;
 12. the dragon main path in four configs inside one call, in turns, two
     rounds: ``compaction=False``, ``compaction=True``, ``compaction=True,
     rank_trace=2`` (through ``Renderer.render``), ``compaction=True,
     fused_broadphase=True``; launch counts per sample, each image against
     the first config's, and a profile of the third;
 13. a dragon cross-check at 128x128 with ``compaction=True, rank_trace=2``;
+    then dragon 1024x1024 at ``compaction=True`` and at ``rank_trace=2``
+    through the graphed main path with the exact broad phase's kernel and
+    with its plain chain forced: the images ``torch.equal``, ms/sample of
+    each, and the kernel's launches a sample (2 in one direction, 1 pair);
 14. the shading extensions on the scenes whose CLI turns one on (coatball
     specular, bunny_env the environment map, glass_sphere refraction,
     uv_test textures), through K1/K2, each scene at its own default size
@@ -238,6 +246,7 @@ renders nothing (there is no CPU fallback).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -1020,39 +1029,204 @@ def sorted_against_shuffled(name, fn, args):
     return ms_sorted, ms_mixed
 
 
+# The exact broad phase's forms timed and checked by phase 11: (label,
+# nearest_cluster keywords; "max_t": bounded, "sup": the super boxes,
+# "pair": nearest_cluster_pair with those ranks)
+EXACT_FORMS = (
+    ("ranks 1", dict(return_key=True)),
+    ("ranks 1-2", dict(return_key=True, return_second=1)),
+    ("ranks 1-2 packed", dict(return_key=True, return_second=1,
+                              return_packed=True)),
+    ("ranks 1-3", dict(return_key=True, return_second=2)),
+    ("ranks 1-3 packed", dict(return_key=True, return_second=2,
+                              return_packed=True)),
+    ("bounded rank 1", dict(max_t=True)),
+    ("bounded ranks 1-2", dict(max_t=True, return_second=1)),
+    ("super level bounded", dict(sup=True, max_t=True)),
+    ("pair ranks 2", dict(pair=2)),
+    ("pair ranks 3 packed", dict(pair=3, return_packed=True)),
+)
+# FP32 issue slots of the top-k update a ray and box: min for rank 1, then
+# max and min for each further rank
+TOPK_OPS = {1: 1, 2: 3, 3: 5}
+
+
+def exact_broadphase_work(n, nc, ranks, live, live_sh=None, bounded=False):
+    """(bytes, operations) of one ``nearest_cluster_kernel`` launch over
+    ``nc`` boxes: a slab test of every live ray against every box
+    (``SLAB_OPS``) and its top-k update; the pair (``live_sh``: the shadow
+    segments' live rays) adds the shadow's test less the six shared
+    subtractions and its rank-1 update, and the pair's reads and key."""
+    nbytes = n * (12 + 12 + 1 + (4 if bounded else 0) + 4 * ranks) + 24 * nc
+    ops = live * nc * (SLAB_OPS + TOPK_OPS[ranks])
+    if live_sh is not None:
+        nbytes += n * (12 + 1 + 4 + 4)
+        ops += live_sh * nc * (SLAB_OPS - 6 // 2 + TOPK_OPS[1])
+    return nbytes, ops
+
+
+def nearest_cluster_registers():
+    """Log each ``nearest_cluster_kernel`` instance's registers and spill
+    line from this process's build (phase 1); fails on a spill.  Returns
+    {instance: registers} (empty for a build loaded from the cache)."""
+    from metal_raytracing_tpu_torch.ops import _build
+
+    regs, name = {}, None
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = (line.split("'")[1] if "nearest_cluster_kernel" in line
+                    else None)
+        elif name and "spill" in line:
+            assert "0 bytes spill stores, 0 bytes spill loads" in line, (
+                f"{name} spills: {line.strip()}")
+        elif name and "Used" in line and "registers" in line:
+            regs[name] = int(line.split("Used")[1].split()[0])
+    for inst, r in regs.items():
+        log(f"  {inst}: {r} registers, no spill")
+    assert not _build.build_log or len(regs) == 8, regs
+    return regs
+
+
+def _exact_call(kw, rays, data, spec):
+    """A closure that runs one form of the exact broad phase."""
+    from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
+
+    o, d, m, mt, d_nb, m_nb = rays
+    kw = dict(kw)
+    if "pair" in kw:
+        ranks = kw.pop("pair")
+        return lambda: BP.nearest_cluster_pair(
+            o, d, mt, m, d_nb, m_nb, data.clu_planes, spec.bvh, ranks=ranks,
+            **kw)
+    table = (data.sup_planes[:, None, :] if kw.pop("sup", False)
+             else data.clu_planes)
+    bound_t = mt if kw.pop("max_t", False) else None
+    return lambda: BP.nearest_cluster(o, d, m, table, spec.bvh,
+                                      max_t=bound_t, **kw)
+
+
+@contextlib.contextmanager
+def plain_chain():
+    """Inside it the exact broad phase's wrappers run the plain chain on
+    the card (for the comparisons; the port never does)."""
+    from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
+
+    saved = BP._device_path
+    BP._device_path = lambda o: False
+    try:
+        yield
+    finally:
+        BP._device_path = saved
+
+
 def check_exact_broadphase(rec, any_rec, data, spec):
-    """``nearest_cluster``'s rank 1-2 keys (plain PyTorch on the card)
-    against K5's on the same rays, and the ms of the unfused forms."""
+    """``nearest_cluster_kernel`` against the plain chain on the same card
+    in every form (``EXACT_FORMS``), bit for bit, on the slice's sorted
+    bounce-1 rays (the unbounded forms) and its bounce-1 shadow segments
+    (the bounded forms and the pair, with the bounce rays' directions);
+    the kernel's ranks 1-2 against K5's keys; each form's kernel ms by
+    events (twenty host calls between two events also time the wrapper's
+    Python) and its device ms from the profiler, beside the plain chain's
+    ms and its bound.  Returns the kernel's results by form."""
     import torch
 
     from metal_raytracing_tpu_torch.ops import broadphase_cuda as BP
+    from metal_raytracing_tpu_torch.utils.metrics import kernel_device_ms
 
     o, d, m, _, _ = rec
-    clu, tri, bvh = data.clu_planes, data.tri_planes, spec.bvh
-    rank3 = lambda: BP.nearest_cluster(o, d, m, clu, bvh, return_key=True,
-                                       return_second=2, return_packed=True)
-    fused = lambda: BP.broadphase_keys(o, d, m, clu, tri, bvh, want2=True)
-    _, k1, k2, _ = rank3()
-    f1, f2, _ = fused()
-    n_live = int(m.sum())
-    share = min(int(((a == b) & m).sum()) / max(n_live, 1)
-                for a, b in ((k1, f1), (k2, f2)))
-    ms_rank3 = cuda_ms(rank3, 3)
-    ms_rank2 = cuda_ms(lambda: BP.nearest_cluster(
-        o, d, m, clu, bvh, return_key=True, return_second=1), 3)
-    ms_fused = cuda_ms(fused, 10)
     so, sd, smt, sm = any_rec
-    ms_pair = cuda_ms(lambda: BP.nearest_cluster_pair(
-        so, sd, smt, sm, d, m, clu, bvh, ranks=3, return_packed=True), 3)
-    ms_sup = cuda_ms(lambda: BP.nearest_cluster(
-        so, sd, sm, data.sup_planes[:, None, :], bvh, max_t=smt), 3)
-    torch.cuda.synchronize()
-    log(f"  nearest_cluster vs K5 on {n_live} live rays: rank 1 and 2 keys "
-        f"equal {share:.6f}; per pass: ranks 1-3 {ms_rank3:.3f} ms, ranks "
-        f"1-2 {ms_rank2:.3f} ms, pair sweep (shadow + ranks 1-3) "
-        f"{ms_pair:.3f} ms, super level {ms_sup:.3f} ms; K5 with the second "
-        f"key {ms_fused:.3f} ms")
-    assert share >= MIN_MATCH, f"nearest_cluster vs K5: {share:.6f}"
+    clu, tri, bvh = data.clu_planes, data.tri_planes, spec.bvh
+    nregs = nearest_cluster_registers()
+    out = {}
+    for label, kw in EXACT_FORMS:
+        bounded = "max_t" in kw or "pair" in kw
+        rays = ((so, sd, sm, smt, d, m) if bounded
+                else (o, d, m, smt, d, m))
+        run = _exact_call(kw, rays, data, spec)
+        got = run()
+        with plain_chain():
+            ref = run()
+            plain_ms = cuda_ms(run, 2)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        n = rays[0].shape[0]
+        same = torch.ones(n, dtype=torch.bool, device=o.device)
+        for g, r in zip(got, ref):
+            same &= g == r
+        share = float(same.float().mean())
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        ms = cuda_ms(run, 20)
+        dev_ms = kernel_device_ms(run, "nearest_cluster_kernel", 10)
+        nc = (data.sup_planes.shape[0] if kw.get("sup")
+              else clu.shape[0] * clu.shape[1])
+        ranks = kw.get("pair", 1 + kw.get("return_second", 0))
+        if "pair" in kw:
+            work = exact_broadphase_work(n, nc, ranks, int(m.sum()),
+                                         int(sm.sum()))
+        else:
+            work = exact_broadphase_work(n, nc, ranks, int(rays[2].sum()),
+                                         bounded=bounded)
+        bnd = bound(*work)
+        log(f"  {label}: {n} rays x {nc} boxes, kernel vs plain chain equal "
+            f"{share:.6f} (torch.equal {equal}); kernel {ms:.4f} ms by "
+            f"events ({dev_ms:.4f} ms device time, profiler), plain chain "
+            f"{plain_ms:.3f} ms ({plain_ms / dev_ms:.1f}x), bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / dev_ms:.1f}% of "
+            f"the device time)")
+        assert equal, f"nearest_cluster_kernel {label}: {share:.6f}"
+        out[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound": bnd, "err": 0.0}
+    fused = BP.broadphase_keys(o, d, m, clu, tri, bvh, want2=True)
+    _, k1, k2 = BP.nearest_cluster(o, d, m, clu, bvh, return_key=True,
+                                   return_second=1, return_packed=True)
+    k5_equal = bool(torch.equal(k1, fused[0]) and torch.equal(k2, fused[1]))
+    ms_fused = cuda_ms(lambda: BP.broadphase_keys(o, d, m, clu, tri, bvh,
+                                                  want2=True), 20)
+    log(f"  ranks 1-2 equal to K5's keys+second {k5_equal} (K5 "
+        f"{ms_fused:.4f} ms with its global seed); registers "
+        f"{sorted(set(nregs.values()))}")
+    assert k5_equal, "nearest_cluster_kernel vs K5"
+    return out
+
+
+def exact_broadphase_images(card, size):
+    """Dragon at config B (``compaction=True``) and at ``rank_trace=2``
+    through the graphed main path, with the kernel's keys and with the
+    plain chain forced, in turns: the images ``torch.equal``, ms/sample of
+    each, and the kernel's launches in one eager sample."""
+    import torch
+
+    from metal_raytracing_tpu_torch.renderer import Renderer
+    from metal_raytracing_tpu_torch.scenes import get_scene
+    from metal_raytracing_tpu_torch.types import RenderConfig
+
+    w, h = size
+    for label, kw in (("config B", dict(compaction=True)),
+                      ("rank_trace=2", SLICE)):
+        images, ms = [], []
+        for plain in (False, True):
+            cfg = RenderConfig(width=w, height=h, **kw)
+            with plain_chain() if plain else contextlib.nullcontext():
+                r = Renderer(get_scene("dragon", w, h), cfg, device="cuda")
+                k = r.samples_per_dispatch
+                r.render(k)  # the warm-up sample and the graph's capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.render(k * ROUND_SAMPLES)  # replays
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / (k * ROUND_SAMPLES) * 1e3)
+            images.append(r.accum.clone())
+            if not plain:
+                per = sample_launches(r)
+        equal = bool(torch.equal(images[0], images[1]))
+        log(f"  dragon {w}x{h} {label}: kernel {ms[0]:.3f} ms/sample, plain "
+            f"chain {ms[1]:.3f} ms/sample; images torch.equal {equal}; "
+            f"launches a sample: nearest_cluster {per['nearest_cluster']} "
+            f"(pair {per['nearest_cluster_pair']}); on {card}")
+        assert equal, label
+        assert (per["nearest_cluster"], per["nearest_cluster_pair"]) == (
+            2, 1), per
 
 
 CONFIGS = (  # (label, config keywords)
@@ -1209,6 +1383,7 @@ KERNEL_COUNTERS = {
     "closest_hier_kernel": ("closest_hier", "closest_hier_baked"),
     "any_hier_kernel": ("any_hier",),
     "broadphase_kernel": ("broadphase",),
+    "nearest_cluster_kernel": ("nearest_cluster", "nearest_cluster_pair"),
     "closest_rank_kernel": ("closest_rank",),
     "closest_bvh_kernel": ("closest_bvh",),
     "any_bvh_kernel": ("any_bvh",),
@@ -1265,8 +1440,8 @@ def checked_profile(label, r, k, per, steps=1):
 def launch_counts():
     from metal_raytracing_tpu_torch.ops import trace as PT
     from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-    from metal_raytracing_tpu_torch.ops.broadphase_cuda import \
-        broadphase_keys
+    from metal_raytracing_tpu_torch.ops.broadphase_cuda import (
+        broadphase_keys, nearest_cluster)
     from metal_raytracing_tpu_torch.ops.rank_cuda import trace_closest_rank
 
     return {"closest_bvh": PT.trace_closest.launches,
@@ -1278,6 +1453,8 @@ def launch_counts():
             "any_hier": TC.trace_any.launches_hier,
             "broadphase": broadphase_keys.launches,
             "broadphase_clusters": broadphase_keys.launches_clusters,
+            "nearest_cluster": nearest_cluster.launches,
+            "nearest_cluster_pair": nearest_cluster.launches_pair,
             "closest_rank": trace_closest_rank.launches}
 
 
@@ -3360,10 +3537,10 @@ def main() -> int:
                 o, d, mt, m, *tabs), (o2.contiguous(), d2.contiguous(), mt,
                                       m2))
 
-    # ---- phase 11: the exact broad phase beside K5
-    log("phase 11: nearest_cluster (plain PyTorch) vs K5")
-    check_exact_broadphase(calls["rank"][0], calls["any"][1], sl.data,
-                           sl.spec)
+    # ---- phase 11: the exact broad phase's kernel vs its plain chain
+    log("phase 11: nearest_cluster_kernel vs the plain chain, every form")
+    exact = check_exact_broadphase(calls["rank"][0], calls["any"][1],
+                                   sl.data, sl.spec)
     del calls, walks, sl
     torch.cuda.empty_cache()
 
@@ -3380,10 +3557,16 @@ def main() -> int:
     launches["K5 keys"] = fused_counts["broadphase_clusters"]
     launches_of["K6"] = notes[CONFIGS[2][0]]
     launches_of["K5 keys"] = notes[CONFIGS[3][0]]
+    # the exact broad phase's kernel under compaction=True
+    nc_launches = {k: totals[CONFIGS[1][0]][k]
+                   for k in ("nearest_cluster", "nearest_cluster_pair")}
+    assert nc_launches["nearest_cluster_pair"] > 0, nc_launches
 
     # ---- phase 13: the slice's image through the kernels vs plain versions
     log("phase 13: dragon cross-check, compaction=True rank_trace=2")
     cross_check("dragon", (128, 128), 1, **SLICE)
+    log("  the exact broad phase's kernel against the plain chain, images:")
+    exact_broadphase_images(card, DRAGON)
 
     # ---- phase 14: the shading extensions through K1/K2
     log("phase 14: the shading extensions (coatball, bunny_env, "
@@ -3493,6 +3676,20 @@ def main() -> int:
                 if k.startswith(kind)}
         elif key == "K6":
             kernels[-1]["options_ms"] = k6_ms
+    for label, line in (("ranks 1-2", 675), ("pair ranks 3 packed", 811)):
+        first = exact[label]  # phase 11: the slice's bounce-1 rays
+        kernels.append({
+            "name": "nearest_cluster_kernel", "form": label, "route": "cuda",
+            "source": CSRC + "broadphase.cu",
+            "replaces": f"{PALLAS}:{line}", "pallas_counterpart": None,
+            "launches": sum(nc_launches.values()),
+            "launches_pair": nc_launches["nearest_cluster_pair"],
+            "launches_of": notes[CONFIGS[1][0]],
+            "max_abs_err": 0.0, "ms": first["ms"],
+            "device_ms": first["device_ms"],
+            "plain_ms": first["plain_ms"], "plain_kind": "the plain chain",
+            "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+            "library_ms": None})
     for query, name, line in (("closest", "closest_bvh_kernel", 125),
                               ("any", "any_bvh_kernel", 219)):
         first = bvh[query][0]  # dragon's primary pass

@@ -128,6 +128,8 @@ def _load() -> ctypes.CDLL:
     lib.launch_any_hier.restype = i
     lib.launch_broadphase.argtypes = [p] * 6 + [i] * 6 + [p] * 3 + [i, p]
     lib.launch_broadphase.restype = i
+    lib.launch_nearest_cluster.argtypes = [p] * 8 + [i] * 3 + [p] * 4 + [i, p]
+    lib.launch_nearest_cluster.restype = i
     lib.launch_closest_rank.argtypes = [p] * 6 + [i] * 5 + [p] * 5
     lib.launch_closest_rank.restype = i
     lib.launch_closest_bvh.argtypes = [p] * 8 + [i] * 7 + [p] * 5

@@ -22,12 +22,15 @@ cluster keys for its sort keys.
 :func:`nearest_cluster` and :func:`nearest_cluster_pair` are the exact
 broad phase of the compaction sort keys, the counterparts of the functions
 of those names in ``trace_pallas``.  The reference leaves them to XLA,
-outside any Pallas kernel, so they are plain PyTorch here on every device:
-an (rays x clusters) slab chain of sub, mul, min and max whose int32 keys
-equal the reference's bit for bit.  Eager PyTorch does not fuse that chain
-(about forty passes over rays x clusters x 4 byte temporaries), which is
-what makes the compaction path slow on the card; fusing it is ROADMAP.md's
-item.
+which fuses their (rays x clusters) slab chain into one reduce.  Here, for
+tensors on a CUDA device, they launch ``nearest_cluster_kernel``
+(``csrc/broadphase.cu``), one pass a ray over the box table in shared
+memory that keeps each ray's smallest keys in registers, and never fall
+back; for tensors on the CPU they run the plain chain of sub, mul, min and
+max (:func:`nearest_cluster_ref`, :func:`nearest_cluster_pair_ref`), whose
+int32 keys equal the reference's and the kernel's bit for bit.
+``nearest_cluster.launches`` counts the kernel's single-direction launches,
+``nearest_cluster.launches_pair`` its pair launches.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from .trace_cuda import (IDX_MASK, N_TRI_PLANES, _INIT_KEY, _check_rays,
                          _ray_chunks, _stream)
 
 __all__ = ["broadphase_keys", "broadphase_ref", "decode_cluster_key",
-           "slab_entry", "nearest_cluster", "nearest_cluster_pair", "NC_SENT",
+           "slab_entry", "nearest_cluster", "nearest_cluster_pair",
+           "nearest_cluster_ref", "nearest_cluster_pair_ref", "NC_SENT",
            "NC_IDM", "BROADPHASE_MAX_CLUSTERS", "BROADPHASE_MODES"]
 
 # Packed broad-phase keys keep 12 cluster-id bits (trace_pallas._NC_IDM).
@@ -61,6 +65,7 @@ BROADPHASE_MODES = (
 # a full-frame pass runs in a few ray chunks of this size (1M rays x 344
 # clusters: 6), each a fixed number of launches.
 _SWEEP_CHUNK_BYTES = 1 << 28
+NEAREST_CLUSTER_BLOCK = 256  # threads a block of nearest_cluster_kernel
 
 
 def _safe_inv(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -204,7 +209,7 @@ def decode_cluster_key(key: torch.Tensor, ncp: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The exact broad phase of the compaction sort keys (plain PyTorch)
+# The exact broad phase of the compaction sort keys
 # ---------------------------------------------------------------------------
 
 
@@ -252,6 +257,96 @@ def _smallest_keys(key, ranks: int):
     return out
 
 
+def nearest_cluster_ref(o, d, mask, boxes, max_t=None, ranks: int = 1):
+    """The plain chain of ``nearest_cluster_kernel``: per ray the ``ranks``
+    smallest packed slab keys over the (NC, 6) ``boxes``, ascending, as a
+    list of (N,) int32 (NC_SENT where there are fewer); ``max_t`` bounds
+    the entry.  The CPU path of :func:`nearest_cluster`."""
+    n, nc = o.shape[0], boxes.shape[0]
+    ids = torch.arange(nc, dtype=torch.int32, device=o.device)[None, :]
+    keys = [torch.empty((n,), dtype=torch.int32, device=o.device)
+            for _ in range(ranks)]
+    for s, e in _sweep_chunks(n, nc):
+        key = _packed_slab_keys(_box_subs(o[s:e], boxes), d[s:e], mask[s:e],
+                                None if max_t is None else max_t[s:e], boxes,
+                                ids)
+        for out, k in zip(keys, _smallest_keys(key, ranks)):
+            out[s:e] = k
+    return keys
+
+
+def nearest_cluster_pair_ref(o, d_sh, max_t_sh, mask_sh, d_nb, mask_nb,
+                             boxes, ranks: int):
+    """The plain chain of the pair form of ``nearest_cluster_kernel``:
+    ``(shadow rank-1 keys, [the next bounce's ranks keys])``, the ``box -
+    o`` differences computed once for both.  The CPU path of
+    :func:`nearest_cluster_pair`."""
+    n, nc = o.shape[0], boxes.shape[0]
+    ids = torch.arange(nc, dtype=torch.int32, device=o.device)[None, :]
+    skey1 = torch.empty((n,), dtype=torch.int32, device=o.device)
+    bkeys = [torch.empty_like(skey1) for _ in range(ranks)]
+    for s, e in _sweep_chunks(n, nc):
+        subs = _box_subs(o[s:e], boxes)
+        skey1[s:e] = _packed_slab_keys(subs, d_sh[s:e], mask_sh[s:e],
+                                       max_t_sh[s:e], boxes, ids).amin(dim=1)
+        bkey = _packed_slab_keys(subs, d_nb[s:e], mask_nb[s:e], None, boxes,
+                                 ids)
+        for out, k in zip(bkeys, _smallest_keys(bkey, ranks)):
+            out[s:e] = k
+    return skey1, bkeys
+
+
+def _box_table(o, clu):
+    """The (NC, 6) boxes of an (NS, S, 6) table, checked for the kernel."""
+    if clu.dim() != 3 or clu.shape[2] != 6:
+        raise ValueError(f"the box table must be (NS, S, 6), got "
+                         f"{tuple(clu.shape)}")
+    _check_tables(o.device, clu=clu)
+    nc = clu.shape[0] * clu.shape[1]
+    if nc > BROADPHASE_MAX_CLUSTERS:
+        raise ValueError(f"{nc} boxes exceed the broad phase's "
+                         f"{BROADPHASE_MAX_CLUSTERS}")
+    return clu.reshape(nc, 6)
+
+
+def _device_path(o) -> bool:
+    """Does this call launch ``nearest_cluster_kernel``?  (CPU tensors take
+    the plain chain.)"""
+    if o.device.type == "cpu":
+        return False
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    return True
+
+
+def _launch_nearest(o, d, mask, max_t, boxes, ranks, shadow=None):
+    """Launch ``nearest_cluster_kernel``: ``ranks`` (N,) int32 key tensors
+    and, with ``shadow = (d_sh, max_t_sh, mask_sh)`` (the pair), the shadow
+    segments' rank-1 keys."""
+    from ._build import load_library
+
+    lib = load_library()
+    n = o.shape[0]
+    keys = [torch.empty((n,), dtype=torch.int32, device=o.device)
+            for _ in range(ranks)]
+    skey = None if shadow is None else torch.empty_like(keys[0])
+    if n:
+        d_sh, mt_sh, m_sh = (None, None, None) if shadow is None else shadow
+        ins = [None if x is None else x.contiguous()
+               for x in (o, d, mask, max_t, d_sh, m_sh, mt_sh, boxes)]
+        outs = keys + [None] * (3 - ranks) + [skey]
+        err = lib.launch_nearest_cluster(
+            *(_ptr(x) for x in ins), n, boxes.shape[0], ranks,
+            *(_ptr(x) for x in outs), NEAREST_CLUSTER_BLOCK,
+            _stream(o.device))
+        _raise_on(err, lib, "nearest_cluster_kernel")
+        if shadow is None:
+            nearest_cluster.launches += 1
+        else:
+            nearest_cluster.launches_pair += 1
+    return keys, skey
+
+
 def nearest_cluster(o, d, mask, clu, spec: BVHSpec, max_t=None,
                     return_key: bool = False, return_second: int = 0,
                     return_packed: bool = False):
@@ -260,32 +355,36 @@ def nearest_cluster(o, d, mask, clu, spec: BVHSpec, max_t=None,
     ``trace_pallas.nearest_cluster``, with its return forms.
 
     ``clu`` is the (NS, S, 6) box table (the shadow fold of the last bounce
-    passes the super boxes as ``sup[:, None, :]``).  With ``max_t`` only
-    clusters entered before it count.  ``return_key`` adds the winner's
-    packed key after the id; ``return_second`` (1 or 2) adds the second (and
-    third) nearest, as ids or with ``return_packed`` as packed keys."""
+    passes the super boxes as ``sup[:, None, :]``), at most 4,096 boxes.
+    With ``max_t`` only clusters entered before it count.  ``return_key``
+    adds the winner's packed key after the id; ``return_second`` (1 or 2)
+    adds the second (and third) nearest, as ids or with ``return_packed``
+    as packed keys.  ``nearest_cluster_kernel`` on a CUDA device,
+    :func:`nearest_cluster_ref` on the CPU."""
     del spec  # the reference's signature; the box table says it all
-    ns, s_per, _ = clu.shape
-    nc = ns * s_per
-    n = o.shape[0]
-    dev = o.device
-    boxes = clu.reshape(nc, 6)
-    ids = torch.arange(nc, dtype=torch.int32, device=dev)[None, :]
+    if return_second not in (0, 1, 2):
+        raise ValueError(f"return_second must be 0, 1 or 2, got "
+                         f"{return_second}")
+    extra = () if max_t is None else (
+        ("max_t", max_t, (o.shape[0],), torch.float32),)
+    _check_rays(o, d, mask, extra)
+    boxes = _box_table(o, clu)
     ranks = 1 + int(return_second)
-    keys = [torch.empty((n,), dtype=torch.int32, device=dev)
-            for _ in range(ranks)]
-    for s, e in _sweep_chunks(n, nc):
-        key = _packed_slab_keys(_box_subs(o[s:e], boxes), d[s:e], mask[s:e],
-                                None if max_t is None else max_t[s:e], boxes,
-                                ids)
-        for out, k in zip(keys, _smallest_keys(key, ranks)):
-            out[s:e] = k
+    if _device_path(o):
+        keys, _ = _launch_nearest(o, d, mask, max_t, boxes, ranks)
+    else:
+        keys = nearest_cluster_ref(o, d, mask, boxes, max_t, ranks)
+    nc = boxes.shape[0]
     cid = decode_cluster_key(keys[0], nc)
     extras = [k if return_packed else decode_cluster_key(k, nc)
               for k in keys[1:]]
     if return_key:
         return (cid, keys[0], *extras)
     return (cid, *extras) if extras else cid
+
+
+nearest_cluster.launches = 0  # single-direction launches of the kernel
+nearest_cluster.launches_pair = 0  # its pair launches
 
 
 def nearest_cluster_pair(o, d_sh, max_t_sh, mask_sh, d_nb, mask_nb, clu,
@@ -298,26 +397,25 @@ def nearest_cluster_pair(o, d_sh, max_t_sh, mask_sh, d_nb, mask_nb, clu,
     cid3])``, equal to ``nearest_cluster(o, d_sh, mask_sh, clu, spec,
     max_t=max_t_sh)`` followed by ``nearest_cluster(o, d_nb, mask_nb, clu,
     spec, return_key=True, return_second=ranks - 1,
-    return_packed=return_packed)``."""
+    return_packed=return_packed)``.  The pair form of
+    ``nearest_cluster_kernel`` on a CUDA device,
+    :func:`nearest_cluster_pair_ref` on the CPU."""
     del spec
     if ranks not in (2, 3):
         raise ValueError(f"ranks must be 2 or 3, got {ranks}")
-    ns, s_per, _ = clu.shape
-    nc = ns * s_per
     n = o.shape[0]
-    dev = o.device
-    boxes = clu.reshape(nc, 6)
-    ids = torch.arange(nc, dtype=torch.int32, device=dev)[None, :]
-    skey1 = torch.empty((n,), dtype=torch.int32, device=dev)
-    bkeys = [torch.empty_like(skey1) for _ in range(ranks)]
-    for s, e in _sweep_chunks(n, nc):
-        subs = _box_subs(o[s:e], boxes)
-        skey1[s:e] = _packed_slab_keys(subs, d_sh[s:e], mask_sh[s:e],
-                                       max_t_sh[s:e], boxes, ids).amin(dim=1)
-        bkey = _packed_slab_keys(subs, d_nb[s:e], mask_nb[s:e], None, boxes,
-                                 ids)
-        for out, k in zip(bkeys, _smallest_keys(bkey, ranks)):
-            out[s:e] = k
+    _check_rays(o, d_sh, mask_sh, (
+        ("max_t_sh", max_t_sh, (n,), torch.float32),
+        ("d_nb", d_nb, (n, 3), torch.float32),
+        ("mask_nb", mask_nb, (n,), torch.bool)))
+    boxes = _box_table(o, clu)
+    if _device_path(o):
+        bkeys, skey1 = _launch_nearest(o, d_nb, mask_nb, None, boxes, ranks,
+                                       shadow=(d_sh, max_t_sh, mask_sh))
+    else:
+        skey1, bkeys = nearest_cluster_pair_ref(o, d_sh, max_t_sh, mask_sh,
+                                                d_nb, mask_nb, boxes, ranks)
+    nc = boxes.shape[0]
     extras = [k if return_packed else decode_cluster_key(k, nc)
               for k in bkeys[1:]]
     return (decode_cluster_key(skey1, nc), decode_cluster_key(bkeys[0], nc),

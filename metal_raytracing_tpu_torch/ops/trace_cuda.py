@@ -901,12 +901,13 @@ def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counts (the broad phase's, the
     rank walk's and the BVH tracers' too)."""
     from . import trace
-    from .broadphase_cuda import broadphase_keys
+    from .broadphase_cuda import broadphase_keys, nearest_cluster
     from .rank_cuda import trace_closest_rank
 
     trace_closest.launches = trace_closest.launches_hier = 0
     trace_closest.launches_baked = 0
     trace_any.launches = trace_any.launches_hier = 0
     broadphase_keys.launches = broadphase_keys.launches_clusters = 0
+    nearest_cluster.launches = nearest_cluster.launches_pair = 0
     trace_closest_rank.launches = 0
     trace.trace_closest.launches = trace.trace_any.launches = 0

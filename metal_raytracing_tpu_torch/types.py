@@ -316,12 +316,11 @@ class RenderConfig:
     the image is the same.
 
     Every default is the JAX package's but one: ``compaction`` is False
-    here.  The sort keys come from an (rays x clusters) elementwise chain
-    that XLA fuses into one reduce and eager PyTorch runs as some forty
-    passes over temporaries of rays x clusters x 4 bytes, so the port's
-    compaction path is slower than its ``compaction=False`` path until that
-    chain is a kernel (PERF.md has the measurement, ROADMAP.md the item
-    that flips the default)."""
+    here.  On a CUDA device the sort keys' exact broad phase is one kernel
+    (``nearest_cluster_kernel``); with it, the compaction path runs about
+    as fast as the ``compaction=False`` path with K5's keys
+    (``fused_broadphase=True``) and slower without them (PERF.md has the
+    measurement, ROADMAP.md the conditions that flip the default)."""
 
     width: int = 512
     height: int = 512
