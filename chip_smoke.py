@@ -1451,6 +1451,9 @@ def launch_counts():
             "closest_hier": TC.trace_closest.launches_hier,
             "closest_hier_baked": TC.trace_closest.launches_baked,
             "any_hier": TC.trace_any.launches_hier,
+            # the wide instances' share of the hierarchical launches above
+            "closest_wide": TC.trace_closest.launches_wide,
+            "any_wide": TC.trace_any.launches_wide,
             "broadphase": broadphase_keys.launches,
             "broadphase_clusters": broadphase_keys.launches_clusters,
             "nearest_cluster": nearest_cluster.launches,
@@ -2986,12 +2989,14 @@ def dispatch_config(card, label, name, size, kw, timed=True):
     assert img.shape == (h, w, 3) and bool(np.isfinite(img).all())
     assert float(img.max()) > 0.01, label
     diff = sorted(set(names["graph"]) ^ set(names["eager"]))
+    # the wide counts are a part of the hierarchical ones
+    launches = sum(v for n, v in per.items() if not n.endswith("_wide"))
     log(f"  {label} {w}x{h}, batch {k}: image after {e.total_samples} "
         f"samples graph == eager: {same}; the profiles' kernels by name "
         f"equal: {not diff} {[n[:80] for n in diff[:4]]}; first capture "
         f"{cap_s:.3f} s (warm-up sample + capture), pool {pool / 2**20:.1f} "
-        f"MiB; one sample's launches {sum(per.values())} through the "
-        f"wrappers {({n: v for n, v in per.items() if v})}; on {card}")
+        f"MiB; one sample's launches {launches} through the wrappers "
+        f"{({n: v for n, v in per.items() if v})}; on {card}")
     for mode in ("graph", "eager"):
         p = prof[mode]
         dev = p.device_ms_per_sample

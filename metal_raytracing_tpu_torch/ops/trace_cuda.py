@@ -25,7 +25,10 @@ walk as the kernels do and count each ray's cluster visits; tests and
 ``chip_smoke.py`` hold the kernels against them on every ray.  Each wrapper
 keeps plain integer launch counts that grow by one per kernel launch:
 ``trace_closest.launches`` and ``trace_any.launches`` (flat),
-``trace_closest.launches_hier`` and ``trace_any.launches_hier``.
+``trace_closest.launches_hier`` and ``trace_any.launches_hier``;
+``trace_closest.launches_wide`` and ``trace_any.launches_wide`` count the
+hierarchical launches (baked ones too) of the wide instances, those of
+supers of more than ``SHARED_PER_SUPER`` clusters.
 
 **Options of the TPU kernels.**  ``counts`` (``SceneData.clu_counts``, the
 real triangles of each cluster slot, used only where the build marks
@@ -723,6 +726,12 @@ def _raise_on(err: int, lib, what: str) -> None:
                            f"{lib.kernels_error_string(err).decode()}")
 
 
+def _wide(clu) -> int:
+    """1 where the hierarchical launchers pick the wide instance for these
+    cluster tables (supers of more than ``SHARED_PER_SUPER`` clusters)."""
+    return int(clu.shape[1] > SHARED_PER_SUPER)
+
+
 def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -807,6 +816,7 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
                 _stream(o.device))
             _raise_on(err, lib, "closest_hier_kernel (baked origin)")
             trace_closest.launches_baked += 1
+            trace_closest.launches_wide += _wide(clu_c)
         elif n and hier:
             err = lib.launch_closest_hier(
                 _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(sb_c),
@@ -816,6 +826,7 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
                 _ptr(visits), _stream(o.device))
             _raise_on(err, lib, "closest_hier_kernel")
             trace_closest.launches_hier += 1
+            trace_closest.launches_wide += _wide(clu_c)
         elif n:
             err = lib.launch_closest_flat(
                 _ptr(o_c), _ptr(d_c), _ptr(m_c), _ptr(s_c), _ptr(clu_c),
@@ -835,6 +846,7 @@ def trace_closest(o, d, mask, sup, clu, tri, spec: BVHSpec, seed_key=None,
 trace_closest.launches = 0
 trace_closest.launches_hier = 0
 trace_closest.launches_baked = 0
+trace_closest.launches_wide = 0
 
 
 def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
@@ -881,6 +893,7 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
             _stream(o.device))
         _raise_on(err, lib, "any_hier_kernel")
         trace_any.launches_hier += 1
+        trace_any.launches_wide += _wide(clu_c)
     elif n:
         err = lib.launch_any_flat(
             _ptr(o_c), _ptr(d_c), _ptr(mt_c), _ptr(m_c), _ptr(clu_c),
@@ -895,6 +908,7 @@ def trace_any(o, d, max_t, mask, sup, clu, tri, spec: BVHSpec, flat=None,
 
 trace_any.launches = 0
 trace_any.launches_hier = 0
+trace_any.launches_wide = 0
 
 
 def reset_launch_counts() -> None:
@@ -905,8 +919,9 @@ def reset_launch_counts() -> None:
     from .rank_cuda import trace_closest_rank
 
     trace_closest.launches = trace_closest.launches_hier = 0
-    trace_closest.launches_baked = 0
+    trace_closest.launches_baked = trace_closest.launches_wide = 0
     trace_any.launches = trace_any.launches_hier = 0
+    trace_any.launches_wide = 0
     broadphase_keys.launches = broadphase_keys.launches_clusters = 0
     nearest_cluster.launches = nearest_cluster.launches_pair = 0
     trace_closest_rank.launches = 0
