@@ -150,10 +150,10 @@ Phases, each of which raises (exit code != 0) on failure:
     ``Renderer``'s (RMSE < 1e-5), and NCCL at world size 1; ms a step and
     aggregate samples/s of one process, the whole mesh and two of its ranks
     in turns, and one image ``all_reduce`` alone;
-19. every sort layout and knob of the JAX renderer (M1b) on dragon
-    1024x1024 at ``compaction=True``: each image against config A's (RMSE
-    < 1e-6; ``sort_pack_f16``, which rounds to f16, at the golden gate),
-    with its ms/sample and profiled device ms/sample;
+19. the sort key on dragon 1024x1024 at ``compaction=True``, plain and
+    with ``sort_pack_f16``: each image against config A's (RMSE < 1e-6;
+    ``sort_pack_f16``, which rounds to f16, at the golden gate), with its
+    ms/sample and profiled device ms/sample;
 20. ``samples_per_dispatch`` as CUDA graphs: dragon 1024x1024 A,
     ``bake_primary``, D and ``tracer="bvh"``, coatball 1024x768 and
     plane_sphere 256x256 (and, untimed, plane_sphere 64x64 with
@@ -2802,36 +2802,22 @@ def sharding_phase(card):
 
 
 # ---------------------------------------------------------------------------
-# Phase 19: the sort layouts and knobs (M1b) on dragon, compaction=True
+# Phase 19: the sort keys on dragon, compaction=True
 # ---------------------------------------------------------------------------
 
 # (label, config keywords on top of compaction=True)
 SORT_LAYOUTS = (
     ("cluster2", {}),
-    ("cluster3", dict(sort_key="cluster3")),
-    ("cluster2_nodir shadow_key2", dict(sort_key="cluster2_nodir",
-                                        shadow_key2=True)),
-    ("cluster1_dir9 shadow_hit_key", dict(sort_key="cluster1_dir9",
-                                          shadow_hit_key=True)),
-    ("cluster1_hit", dict(sort_key="cluster1_hit")),
-    ("dir6", dict(sort_key="dir6")),
-    ("dir9 sort_primary", dict(sort_key="dir9", sort_primary=True)),
-    ("dir6_cluster", dict(sort_key="dir6_cluster")),
-    ("hybrid shadow_sort_primary", dict(sort_key="hybrid",
-                                        shadow_sort_primary=True)),
-    ("dir_major sort_last_bounce=False", dict(sort_key="dir_major",
-                                              sort_last_bounce=False)),
-    ("cluster2 bounce_hit_key_from=2", dict(bounce_hit_key_from=2)),
     ("cluster2 sort_pack_f16", dict(sort_pack_f16=True)),
 )
 SORT_SAMPLES = 2
 
 
 def sort_layouts_phase(card):
-    """Phase 19: each layout and knob's image against config A's after
-    ``SORT_SAMPLES`` samples (the same image: RMSE < 1e-6; the golden gate
-    for ``sort_pack_f16``, which rounds to f16), and its ms a sample and
-    device ms a sample (``torch.profiler``, 1 sample)."""
+    """Phase 19: the sorted image, plain and packed, against config A's
+    after ``SORT_SAMPLES`` samples (the same image: RMSE < 1e-6; the golden
+    gate for ``sort_pack_f16``, which rounds to f16), and its ms a sample
+    and device ms a sample (``torch.profiler``, 1 sample)."""
     from metal_raytracing_tpu_torch.io.image import rmse
     from metal_raytracing_tpu_torch.renderer import Renderer
     from metal_raytracing_tpu_torch.scenes import get_scene
@@ -3615,10 +3601,10 @@ def main() -> int:
     sharding_phase(card)
     log(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
-    # ---- phase 19: the sort layouts and knobs
+    # ---- phase 19: the sort key, plain and packed
     t19 = time.perf_counter()
-    log(f"phase 19: every sort layout and knob on dragon compaction=True, "
-        f"{SORT_SAMPLES} samples each vs A")
+    log(f"phase 19: the sort key on dragon compaction=True, plain and "
+        f"packed, {SORT_SAMPLES} samples each vs A")
     sort_layouts_phase(card)
     log(f"phase 19: {time.perf_counter() - t19:.1f} s")
 

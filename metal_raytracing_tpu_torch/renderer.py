@@ -9,9 +9,9 @@ fold into a progressive average.
 
 With ``compaction=False`` (the port's default) rays keep their pixel (tile)
 order through every bounce.  With ``compaction=True`` the rays of bounces
->= 1 (and of bounce 0 under ``sort_primary``) are sorted by the key of
-``sort_key`` (a cluster key from the exact broad phase by default), the
-shadow rays are re-sorted by their own, rays that the broad phase proves can
+>= 1 are sorted by a cluster key from the exact broad phase (the
+``dir_major`` key where cluster keys do not apply), the shadow rays are
+re-sorted by their own, rays that the broad phase proves can
 only hit the global set skip the closest kernel, and with ``rank_trace=2``
 the sorted bounce passes take the rank-directed walk (``ops.rank_cuda``)
 with the hierarchical kernel as its fallback.  All of that is a permutation
@@ -402,88 +402,45 @@ def _unpack2f16(w: torch.Tensor):
     return value(w >> 16), value(w & 0xFFFF)
 
 
-def cluster_key_bits(sort_key: str, nc_tot: int, use_hit: bool = False):
-    """The bit budget of a cluster layout's 30-bit key (the reference's
-    ``renderer.py:563-575``): ``(cbits, c2bits, c3bits, db, mbits)``, the
-    bits of the nearest, second and third nearest cluster ids, the
-    direction bits an axis, and the Morton bits left.  ``use_hit``: the
-    hit-cluster key, which has one id only."""
-    want2 = not use_hit and sort_key in ("cluster2", "cluster2_nodir",
-                                         "cluster3")
-    want3 = not use_hit and sort_key == "cluster3"
+def cluster_key_bits(nc_tot: int):
+    """The bit budget of the cluster bounce key's 30 bits (the reference's
+    ``renderer.py:563-575`` for its ``cluster2`` layout): ``(cbits,
+    c2bits, mbits)``, the bits of the nearest and second nearest cluster
+    ids and the Morton bits left below the cone's 2 bits an axis."""
     cbits = max(1, nc_tot.bit_length())
-    db = {"cluster1_dir9": 3, "cluster2_nodir": 0}.get(sort_key, 2)
-    avail = 30 - cbits - 3 * db
-    c2bits = min(cbits, max(0, avail)) if want2 else 0
-    avail -= c2bits
-    c3bits = min(cbits, max(0, avail)) if want3 else 0
-    return cbits, c2bits, c3bits, db, max(0, avail - c3bits)
+    avail = 30 - cbits - 3 * 2
+    c2bits = min(cbits, max(0, avail))
+    return cbits, c2bits, max(0, avail - c2bits)
 
 
-def cluster_key(bits, cid, cid2, cid3, d, m) -> torch.Tensor:
-    """A cluster layout's bounce key (``renderer.py:684-706``): the
-    nearest cluster's id on top, the second and third below it, the
+def cluster_key(bits, cid, cid2, d, m) -> torch.Tensor:
+    """The cluster bounce key (``renderer.py:684-706``): the nearest
+    cluster's id on top, the second nearest below it, the 2-bit-an-axis
     direction cone, then the top Morton bits, by ``bits`` of
     :func:`cluster_key_bits`."""
-    cbits, c2bits, c3bits, db, mbits = bits
-    shift = 30 - cbits
-    key = cid << shift
-    for extra, nb in ((cid2, c2bits), (cid3, c3bits)):
-        if nb:
-            shift -= nb
-            key = key | ((extra & ((1 << nb) - 1)) << shift)
-    if db:
-        shift -= 3 * db
-        key = key | (_dir_cone(d, db) << shift)
+    cbits, c2bits, mbits = bits
+    shift = 30 - cbits - c2bits
+    key = (cid << (30 - cbits)) | ((cid2 & ((1 << c2bits) - 1)) << shift)
+    key = key | (_dir_cone(d, 2) << (shift - 3 * 2))
     return key | (m >> max(0, 27 - mbits))
 
 
-def direction_key(sort_key: str, d, m, prev_tri,
-                  cluster_size: int) -> torch.Tensor:
-    """The bounce key of the layouts without cluster ids
-    (``renderer.py:728-759``): ``"hybrid"``, ``"dir6"``, ``"dir9"``,
-    ``"dir6_cluster"`` (keyed also on ``prev_tri``, the hit the ray
-    bounced off), else ``"dir_major"``; ``m`` the origins' Morton codes."""
-    if sort_key == "hybrid":
-        # coarse origin cell (2 Morton bits an axis), then the direction
-        # octant, then fine Morton
-        return ((m >> 21) << 24) | (_octant(d) << 21) | (m & 0x1FFFFF)
-    if sort_key in ("dir6", "dir9", "dir6_cluster"):
-        bits = 3 if sort_key == "dir9" else 2
-        dirq = _dir_cone(d, bits)
-        if sort_key == "dir6_cluster":
-            # the cone, then the cluster the ray bounced off, then coarse
-            # Morton
-            clu_bin = torch.clamp(prev_tri, 0, 2 ** 30) // cluster_size
-            return ((dirq << 24) | ((clu_bin & 0x3FF) << 14)
-                    | ((m >> 13) & 0x3FFF))
-        return (dirq << (30 - 3 * bits)) | (m >> (3 * bits - 3))
-    # dir_major: the direction octant, then origin Morton (also the
-    # cluster layouts' key where they are off)
+def direction_key(d, m) -> torch.Tensor:
+    """The ``dir_major`` bounce key (``renderer.py:728-759``), where the
+    cluster keys do not apply: the direction octant, then ``m``, the
+    origins' Morton codes."""
     return (_octant(d) << 27) | m
 
 
-def shadow_cluster_key(scid, scid2, light_idx, m, nc_tot: int,
+def shadow_cluster_key(scid, light_idx, m, nc_tot: int,
                        bits_l: int) -> torch.Tensor:
     """The cluster shadow key (``renderer.py:1306-1316``): the segment's
-    nearest cluster, the second nearest below it (``shadow_key2``; None
-    leaves it out), the light (``bits_l`` bits), then the top Morton bits
+    nearest cluster, the light (``bits_l`` bits), then the top Morton bits
     of the origin."""
     cbits_s = max(1, nc_tot.bit_length())
-    c2bits_s = (0 if scid2 is None
-                else min(cbits_s, max(0, 30 - cbits_s - bits_l)))
-    mbits_s = max(0, 30 - cbits_s - c2bits_s - bits_l)
-    skey = ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
+    mbits_s = max(0, 30 - cbits_s - bits_l)
+    return ((scid << (30 - cbits_s)) | (light_idx << mbits_s)
             | (m >> max(0, 27 - mbits_s)))
-    if c2bits_s:
-        skey = skey | ((scid2 & ((1 << c2bits_s) - 1))
-                       << (mbits_s + bits_l))
-    return skey
-
-
-def _from_end(bounce_from: int, max_bounces: int) -> int:
-    """A bounce threshold; negative values count from the last bounce."""
-    return bounce_from if bounce_from >= 0 else max_bounces + bounce_from
 
 
 def pixel_coords(cfg: RenderConfig, device="cpu"):
@@ -585,7 +542,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     fused_keys = (cfg.fused_broadphase and not dir_keys
                   and nc_tot <= BROADPHASE_MAX_CLUSTERS)
     tele = cfg.telemetry and not exact  # visits: the cluster tracers only
-    shadow_key_from = _from_end(cfg.shadow_hit_key_from, cfg.max_bounces)
+    last = cfg.max_bounces - 1
     shade_ext = (cfg.enable_specular or cfg.enable_emission
                  or cfg.enable_textures or cfg.enable_refraction)
 
@@ -622,65 +579,45 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     # ``cur`` maps the current (compacted) ray order back to the padded
     # pixel slot; the radiance scatters through it at the end.
     cur = torch.arange(p, dtype=torch.int32, device=dev)
-    # the previous bounce's hit triangle, for the hit-cluster sort keys
-    prev_tri = torch.full((p,), -1, dtype=torch.int32, device=dev)
     stats: Dict[str, torch.Tensor] = {
         "closest_rays": torch.zeros((), dtype=torch.int64, device=dev),
         "shadow_rays": torch.zeros((), dtype=torch.int64, device=dev)}
-    # The cluster sort keys, shadow and bounce, unless the tracer or the
-    # build takes the dir_major / light-major ones or the layout is not a
-    # cluster one.
-    cluster_layout = cfg.sort_key.startswith("cluster")
-    cluster_keys = not dir_keys and cluster_layout
-    bounce_key_from = _from_end(cfg.bounce_hit_key_from, cfg.max_bounces)
+    # The bounce sorts emit the packed rank 1..3 keys for the rank-directed
+    # walk behind the exact broad phase (the fused kernel gives no third
+    # rank).
+    rank_sort = (closest_rank_fn is not None and cfg.sort_bounces
+                 and not fused_keys)
+    # One nearest_cluster_pair sweep gives a bounce's shadow key and the
+    # next bounce's sort keys where both come from the exact broad phase
+    # over the shared origin, which refraction breaks (a refracted ray
+    # starts inside the surface).
+    pair_sweep = (cfg.pair_broadphase and not cfg.fused_broadphase
+                  and not dir_keys and not cfg.enable_refraction
+                  and cfg.sort_bounces)
 
     def sorts_at(bounce: int) -> bool:
         """Do this bounce's rays go through the compaction sort?"""
-        return (cfg.compaction and (bounce > 0 or cfg.sort_primary)
-                and (cfg.sort_last_bounce or bounce < cfg.max_bounces - 1))
+        return cfg.compaction and bounce > 0
 
     def shadow_sorts_at(bounce: int) -> bool:
-        return (cfg.shadow_sort and cfg.compaction
-                and (bounce > 0 or cfg.shadow_sort_primary))
-
-    def shadow_hit_key_at(bounce: int) -> bool:
-        """Does this bounce's shadow sort key on the hit's own cluster?"""
-        return cfg.shadow_hit_key or bounce >= shadow_key_from
-
-    def rank_at_sort(bounce: int) -> bool:
-        """Does ``bounce_sort(bounce)`` emit the packed rank 1..3 keys for
-        the rank-directed walk?  (The fused kernel gives no third rank, and
-        the hit-cluster key no exact keys.)"""
-        return (closest_rank_fn is not None and cfg.sort_bounces
-                and cfg.sort_key == "cluster2" and not fused_keys
-                and bounce < bounce_key_from)
+        return cfg.shadow_sort and sorts_at(bounce)
 
     def pair_at(bounce: int) -> bool:
-        """Does ``bounce_tail(bounce)`` take its shadow key and the next
-        bounce's sort keys from one ``nearest_cluster_pair`` sweep?  Only
-        where both use the exact broad phase over the shared origin, which
-        refraction breaks (a refracted ray starts inside the surface)."""
-        return (cfg.pair_broadphase and not cfg.fused_broadphase
-                and not dir_keys and not cfg.enable_refraction
-                and not cfg.shadow_key2 and cfg.sort_key == "cluster2"
-                and not shadow_hit_key_at(bounce) and shadow_sorts_at(bounce)
-                and bounce + 1 < cfg.max_bounces and sorts_at(bounce + 1)
-                and cfg.sort_bounces and bounce + 1 < bounce_key_from)
+        """Does ``bounce_tail(bounce)`` take its keys from the pair sweep?
+        Not at the last bounce, whose shadow key is the hit's cluster and
+        which has no next bounce."""
+        return pair_sweep and shadow_sorts_at(bounce) and bounce < last
 
-    def cluster_sort_key(bounce, o, d, alive, prev_tri, carried_bp):
-        """The cluster layouts' key of the reference's ``bounce_sort``
-        (``renderer.py:542-727``): the nearest cluster's id (the no-cluster
-        group ``nc_tot`` for rays the miss fold proves can only hit the
-        global set), the second and third nearest below it as the layout
-        and the 30-bit budget allow, a direction cone, then as much origin
-        Morton as fits.  Returns (key, id bits, rank keys or None)."""
-        # the hit-cluster key, for the layout or from bounce_hit_key_from on
-        use_hit = cfg.sort_key == "cluster1_hit" or bounce >= bounce_key_from
-        bits = cluster_key_bits(cfg.sort_key, nc_tot, use_hit)
-        want2 = bits[1] > 0
-        want3 = bits[2] > 0  # no bits left: no third rank pass
-        use_fused = fused_keys and not want3 and not use_hit
-        gk_fused = cid2 = cid3 = rank_keys = None
+    def cluster_sort_key(o, d, alive, carried_bp):
+        """The cluster key of the reference's ``bounce_sort``
+        (``renderer.py:542-727``, its ``cluster2`` layout): the nearest
+        cluster's id (the no-cluster group ``nc_tot`` for rays the miss
+        fold proves can only hit the global set), the second nearest below
+        it as the 30-bit budget allows, a direction cone, then as much
+        origin Morton as fits.  Returns (key, id bits, rank keys or
+        None)."""
+        bits = cluster_key_bits(nc_tot)
+        gk_fused = rank_keys = None
         if carried_bp is not None:
             cid, nckey = carried_bp[0], carried_bp[1]
             if len(carried_bp) >= 4:  # packed ranks 2 and 3
@@ -688,45 +625,22 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                 rank_keys = (nckey, carried_bp[2], carried_bp[3])
             else:
                 cid2 = carried_bp[2]
-        elif rank_at_sort(bounce):
+        elif rank_sort:
             # ranks 1..2 drive the walk, rank 3 is its certificate
             cid, nckey, k2p, k3p = nearest_cluster(
                 o, d, alive, data.clu_planes, bvh, return_key=True,
                 return_second=2, return_packed=True)
             cid2 = decode_cluster_key(k2p, nc_tot)
             rank_keys = (nckey, k2p, k3p)
-        elif use_fused:
+        elif fused_keys:
             nckey, k2f, gk_fused = _fused_keys(
-                tracer, cfg, data, bvh, o, d, alive, want2=want2)
+                tracer, cfg, data, bvh, o, d, alive, want2=True)
             cid = decode_cluster_key(nckey, nc_tot)
-            if want2:
-                cid2 = decode_cluster_key(k2f, nc_tot)
-        elif use_hit:
-            # A bounce ray starts on its previous hit, inside that
-            # triangle's cluster box: the cluster is the key, for free;
-            # global-set origins take their nearest super's first cluster.
-            # The broad phase and the miss fold run on the super boxes
-            # (a super's entry is a lower bound on its clusters').
-            s_per = data.clu_planes.shape[1]
-            nsp = data.sup_planes.shape[0]
-            sid, nckey = nearest_cluster(o, d, alive,
-                                         data.sup_planes[:, None, :], bvh,
-                                         return_key=True)
-            own = torch.clamp(torch.clamp(prev_tri, min=0)
-                              // bvh.cluster_size, max=nc_tot - 1)
-            on_clu = (prev_tri >= 0) & (prev_tri < bvh.global_base)
-            cid = torch.where(on_clu, own,
-                              torch.clamp(sid * s_per, max=nc_tot - 1))
-            cid = torch.where(sid >= nsp, nc_tot, cid).to(torch.int32)
-        elif want2:
-            res = nearest_cluster(o, d, alive, data.clu_planes, bvh,
-                                  return_key=True,
-                                  return_second=2 if want3 else 1)
-            cid, nckey, cid2 = res[:3]
-            cid3 = res[3] if want3 else None
+            cid2 = decode_cluster_key(k2f, nc_tot)
         else:
-            cid, nckey = nearest_cluster(o, d, alive, data.clu_planes, bvh,
-                                         return_key=True)
+            cid, nckey, cid2 = nearest_cluster(o, d, alive, data.clu_planes,
+                                               bvh, return_key=True,
+                                               return_second=1)
         if cfg.cluster_miss_fold and bvh.num_global > 0:
             # A ray whose nearest cluster is entered beyond its global-set
             # hit finds nothing closer in any cluster: it joins the
@@ -743,27 +657,22 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                          << trace_cuda.IDX_BITS)).view(torch.float32)
             beats = (gk < trace_cuda._MISS_KEY) & (tn_f >= g_plus)
             cid = torch.where(beats, nc_tot, cid)
-        key = cluster_key(bits, cid, cid2, cid3, d, _morton_512(o, data))
+        key = cluster_key(bits, cid, cid2, d, _morton_512(o, data))
         return key, bits[0], rank_keys
 
-    def bounce_sort(bounce, o, d, color, accum, idx, cur, alive, prev_tri,
-                    carried_bp):
+    def bounce_sort(o, d, color, accum, idx, cur, alive, carried_bp):
         """Compaction-sort one bounce's rays.  ``carried_bp`` holds this
-        bounce's keys where the previous tail's pair sweep computed them;
-        ``prev_tri`` is the previous bounce's hit, in this order.  Returns
-        the permuted per-ray state, ``known_miss`` (live rays the broad
-        phase proved can hit no cluster; None when the fold is off) and the
-        sorted rank keys (None unless :func:`rank_at_sort`)."""
+        bounce's keys where the previous tail's pair sweep computed them.
+        Returns the permuted per-ray state, ``known_miss`` (live rays the
+        broad phase proved can hit no cluster; None when the fold is off)
+        and the sorted rank keys (None unless ``rank_sort``)."""
         rank_keys = cbits = None
-        if cfg.sort_bounces and cluster_keys:
-            key, cbits, rank_keys = cluster_sort_key(bounce, o, d, alive,
-                                                     prev_tri, carried_bp)
+        if cfg.sort_bounces and not dir_keys:
+            key, cbits, rank_keys = cluster_sort_key(o, d, alive, carried_bp)
         elif cfg.sort_bounces:
             # the exact tracers and builds past 4,095 padded clusters take
-            # dir_major for the cluster layouts, as the reference does
-            key = direction_key(cfg.sort_key if not cluster_layout
-                                else "dir_major", d, _morton_512(o, data),
-                                prev_tri, bvh.cluster_size)
+            # dir_major, as the reference does
+            key = direction_key(d, _morton_512(o, data))
         if cfg.sort_bounces:
             key = torch.where(alive, key, _DEAD_KEY)
             skey, perm = torch.sort(key)  # tie order is free
@@ -797,8 +706,9 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
     def shadow_trace(bounce, shadow_o, sdir, sdist, light_idx, tri,
                      kernel_shadow, sk, pair_scid):
         """The any-hit pass of one bounce, through the shadow re-sort where
-        it applies; ``sk`` holds the fused broad phase's nearest and second
-        nearest cluster keys where it ran.  Returns the (N,) occlusion in
+        it applies; ``sk`` holds the fused broad phase's nearest cluster
+        key where it ran, ``pair_scid`` the pair sweep's nearest cluster
+        where that ran.  Returns the (N,) occlusion in
         the caller's ray order, the mask the pass traced (after the
         re-sort's fold) in that order, and with telemetry the pass's visits
         in its own ray order."""
@@ -809,20 +719,18 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         # Shadow origins are this bounce's scattered hit points and the
         # direction follows from the origin (it points at the light), so the
         # key is (nearest cluster the segment can hit, light, origin
-        # Morton), or (light, origin Morton) for the exact tracers and the
-        # layouts that are not cluster keys.  A
-        # segment that overlaps no cluster is clear: with the fold it skips
-        # the kernel (global-set occlusion is already out of
+        # Morton), or (light, origin Morton) where the cluster keys do not
+        # apply.  A segment that overlaps no cluster is clear: with the fold
+        # it skips the kernel (global-set occlusion is already out of
         # ``kernel_shadow``).
         m = _morton_512(shadow_o, data)
         bits_l = max(1, (lcount - 1).bit_length())
-        scid2 = None
-        if not cluster_keys:
+        if dir_keys:
             # light-major: light, then origin Morton
             shift = 29 - bits_l
             skey = (light_idx << shift) | (m if shift >= 27
                                            else m >> (27 - shift))
-        elif shadow_hit_key_at(bounce):
+        elif bounce == last:
             # The ray starts on this bounce's hit triangle, inside its
             # cluster's box: that cluster is the key, for free (hits on the
             # global set form a group of their own), and the fold tests the
@@ -838,14 +746,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                     sid < data.sup_planes.shape[0])
         else:
             if sk is not None:  # the fused pass already ran
-                scid = decode_cluster_key(sk[0], nc_tot)
-                if cfg.shadow_key2:
-                    scid2 = decode_cluster_key(sk[1], nc_tot)
-            elif cfg.shadow_key2:
-                # the second-nearest cluster below the first
-                scid, scid2 = nearest_cluster(shadow_o, sdir, kernel_shadow,
-                                              data.clu_planes, bvh,
-                                              max_t=sdist, return_second=1)
+                scid = decode_cluster_key(sk, nc_tot)
             elif pair_scid is not None:  # so did the pair sweep
                 scid = pair_scid
             else:
@@ -853,9 +754,8 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                                        data.clu_planes, bvh, max_t=sdist)
             if cfg.cluster_miss_fold:
                 kernel_shadow = kernel_shadow & (scid < nc_tot)
-        if cluster_keys:
-            skey = shadow_cluster_key(scid, scid2, light_idx, m, nc_tot,
-                                      bits_l)
+        if not dir_keys:
+            skey = shadow_cluster_key(scid, light_idx, m, nc_tot, bits_l)
         skey = torch.where(kernel_shadow, skey, _DEAD_KEY)
         skey, perm = torch.sort(skey)
         res = any_fn(shadow_o[perm], sdir[perm], sdist[perm],
@@ -871,9 +771,8 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
                     rank_keys):
         """Closest hit, shading, the light sample and its shadow ray, and
         the bounce continuation: everything after the compaction sort.
-        Returns the per-ray state, this bounce's hit triangles (the next
-        sort's ``prev_tri``) and the next bounce's carried keys (None unless
-        :func:`pair_at`)."""
+        Returns the per-ray state and the next bounce's carried keys (None
+        unless :func:`pair_at`)."""
         n_alive = alive.sum()
         stats["closest_rays"] += n_alive
         if cfg.telemetry:
@@ -1002,15 +901,14 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             # count as traced shadow rays).  The fused pass also gives the
             # shadow sort's cluster key where that is the exact one.
             sk = None
-            want_skey = (shadow_sorts_at(bounce) and cluster_keys
-                         and not shadow_hit_key_at(bounce) and fused_keys)
+            want_skey = (fused_keys and shadow_sorts_at(bounce)
+                         and bounce < last)
             if cfg.fused_broadphase and (want_skey or fold_global):
-                sk1, sk2, socc = _fused_keys(
+                sk1, _, socc = _fused_keys(
                     tracer, cfg, data, bvh, shadow_o, ls.direction, do_shadow,
-                    max_t=sdist, with_clusters=want_skey, any_mode=True,
-                    want2=cfg.shadow_key2 and want_skey)
+                    max_t=sdist, with_clusters=want_skey, any_mode=True)
                 if want_skey:
-                    sk = (sk1, sk2)
+                    sk = sk1
                 g_occ = (socc > 0 if fold_global
                          else torch.zeros_like(do_shadow))
             elif fold_global:
@@ -1109,11 +1007,10 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         pair_scid = pair_bp = None
         if pair_at(bounce):
             with named_scope("sort keys"):
-                rank_next = rank_at_sort(bounce + 1)
                 res = nearest_cluster_pair(
                     shadow_o, ls.direction, sdist, kernel_shadow, d_next,
-                    alive, data.clu_planes, bvh, ranks=3 if rank_next else 2,
-                    return_packed=rank_next)
+                    alive, data.clu_planes, bvh, ranks=3 if rank_sort else 2,
+                    return_packed=rank_sort)
                 pair_scid, pair_bp = res[0], res[1:]
 
         with named_scope("shadow trace"):
@@ -1138,7 +1035,7 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
             nee = lcolor * dcolor if nee_w is None else lcolor * dcolor * nee_w
             accum = accum + torch.where(visible[:, None], nee,
                                         torch.zeros_like(accum))  # :371-373
-        return o_next, d_next, color_next, accum, alive, hit.tri, pair_bp
+        return o_next, d_next, color_next, accum, alive, pair_bp
 
     carried_bp = None
     for bounce in range(cfg.max_bounces):
@@ -1147,13 +1044,13 @@ def render_rays(data: SceneData, spec: SceneSpec, cfg: RenderConfig,
         if sorts_at(bounce):
             with named_scope("sort keys"):
                 (o, d, color, accum, idx, cur, alive, known_miss,
-                 rank_keys) = bounce_sort(bounce, o, d, color, accum, idx,
-                                          cur, alive, prev_tri, carried_bp)
-        o, d, color, accum, alive, prev_tri, carried_bp = bounce_tail(
+                 rank_keys) = bounce_sort(o, d, color, accum, idx, cur,
+                                          alive, carried_bp)
+        o, d, color, accum, alive, carried_bp = bounce_tail(
             bounce, o, d, color, accum, idx, alive, known_miss, rank_keys)
 
-    # (the reference un-permutes only with more than one bounce, which
-    # leaves a sorted single bounce, sort_primary, in the sort's order)
+    # a sort runs only with more than one bounce, where the reference too
+    # un-permutes
     if any(sorts_at(b) for b in range(cfg.max_bounces)):
         with named_scope("bounce + accumulate"):
             radiance = torch.empty_like(accum)

@@ -10,7 +10,7 @@ JAX package's config that the port lacks (``live_widths``,
 ``carry_seed``, ...: ROADMAP.md's list of what is deliberately not ported)
 is a ``TypeError`` at construction rather than a silent no-op,
 and a value the port does not carry for a knob it has (a ``rank_trace``
-depth, an unknown ``sort_key`` layout) a ``ValueError``.
+depth, an unknown ``tracer``) a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -192,10 +192,6 @@ def pack_materials(materials: Sequence[Material]) -> MaterialTable:
 
 
 TRACERS = ("auto", "cuda", "torch", "bvh", "bruteforce")
-# The bounce sort-key layouts of the JAX renderer (its RenderConfig.sort_key).
-SORT_KEYS = ("cluster2", "cluster1", "cluster1_dir9", "cluster1_hit",
-             "cluster2_nodir", "cluster3", "dir6", "dir9", "dir6_cluster",
-             "hybrid", "dir_major")
 TEXTURE_FILTERS = ("nearest", "bilinear")
 
 
@@ -233,43 +229,29 @@ class RenderConfig:
     and the exact tracers ignore it.  The image is the same up to the
     ~1-ulp re-association of the barycentrics.
 
-    ``compaction`` permutes the rays between bounces so live rays pack
+    ``compaction`` permutes the rays of bounces >= 1 so live rays pack
     together (a pure permutation: the image is unchanged).  With
-    ``sort_bounces`` the bounce rays are sorted by a key, ``sort_key``:
-    ``"cluster1"`` leads with the id of the nearest slab-hit cluster from
-    the exact broad phase (``ops.broadphase_cuda.nearest_cluster``), then a
-    64-cone direction, then the origin's Morton code; ``"cluster2"`` puts
-    the second-nearest cluster's id below the first, ``"cluster3"`` the
-    third below that, ``"cluster2_nodir"`` drops the cone, and
-    ``"cluster1_dir9"`` takes 512 cones; ``"cluster1_hit"`` takes the
-    previous hit's cluster (the nearest super's first cluster for global-set
-    hits) with a super-level broad phase; ``"dir6"`` / ``"dir9"`` lead with
-    a 64- / 512-cone direction, then origin Morton, ``"dir6_cluster"`` with
-    the cone, then the previous hit's cluster, then coarse Morton;
-    ``"hybrid"`` a coarse origin cell, then the octant, then fine Morton;
-    ``"dir_major"`` the octant, then Morton (also the fallback of the
-    cluster layouts above 4,095 padded clusters and for the exact tracers).
-    ``bounce_hit_key_from`` (negative: from the last bounce) switches the
-    cluster layouts to ``"cluster1_hit"`` from that bounce on.
-    ``sort_primary`` sorts the primary rays too, and ``sort_last_bounce``
-    False leaves the last bounce unsorted.  ``sort_pack_f16`` carries the
-    throughput and radiance through each bounce sort as f16 pairs packed
-    in int32 words (one gather of three words in place of six floats): the
-    only sort knob that changes the image, by rounding those six values to
-    f16 once a sort.  Without ``sort_bounces`` live rays are only
-    partitioned to the front, in stable order.  ``cluster_miss_fold``
-    keeps rays whose nearest cluster is entered beyond their global-set hit
-    (or that overlap no cluster) out of the closest kernel: they sort into
-    one group and take the host-side global hit.  ``shadow_sort`` re-sorts the shadow rays of
-    bounces >= 1 by (nearest cluster of the segment, light, origin Morton)
-    and drops segments that overlap no cluster (``shadow_sort_primary``:
-    the primary pass's shadow rays too; ``shadow_key2``: the segment's
-    second-nearest cluster below the first); with ``shadow_hit_key``, or
-    from bounce ``shadow_hit_key_from`` on (negative counts from the last
-    bounce), the shadow key is the hit triangle's own cluster and the fold
-    tests the super boxes.  ``pair_broadphase`` computes a bounce's shadow
-    key and the next bounce's sort keys in one sweep over their shared
-    origins (``nearest_cluster_pair``).  ``rank_trace=2`` hands the sorted bounce
+    ``sort_bounces`` the bounce rays are sorted by one key, the JAX
+    renderer's ``cluster2`` layout: the id of the nearest slab-hit cluster
+    from the exact broad phase (``ops.broadphase_cuda.nearest_cluster``,
+    or K5's keys under ``fused_broadphase``), the second nearest's id
+    below it, a 64-cone direction, then the origin's Morton code.  The exact tracers and builds above 4,095 padded clusters
+    take the ``dir_major`` key instead: the octant, then Morton.
+    ``sort_pack_f16`` carries the throughput and radiance through each
+    bounce sort as f16 pairs packed in int32 words (one gather of three
+    words in place of six floats): the only sort knob that changes the
+    image, by rounding those six values to f16 once a sort.  Without
+    ``sort_bounces`` live rays are only partitioned to the front, in stable
+    order.  ``cluster_miss_fold`` keeps rays whose nearest cluster is
+    entered beyond their global-set hit (or that overlap no cluster) out of
+    the closest kernel: they sort into one group and take the host-side
+    global hit.  ``shadow_sort`` re-sorts the shadow rays of bounces >= 1
+    by (nearest cluster of the segment, light, origin Morton) and drops
+    segments that overlap no cluster; at the last bounce the key is the
+    hit triangle's own cluster and the fold tests the super boxes.
+    ``pair_broadphase`` computes a bounce's shadow key and the next
+    bounce's sort keys in one sweep over their shared origins
+    (``nearest_cluster_pair``).  ``rank_trace=2`` hands the sorted bounce
     passes to the rank-directed closest kernel (``ops.rank_cuda
     .trace_closest_rank``): each ray's two nearest candidate clusters ride
     the sort as packed keys, the walk tests only those, a certificate
@@ -343,17 +325,9 @@ class RenderConfig:
     broadphase_block: int = 256
     compaction: bool = False
     sort_bounces: bool = True
-    sort_primary: bool = False
-    sort_last_bounce: bool = True
     sort_pack_f16: bool = False
-    sort_key: str = "cluster2"
-    bounce_hit_key_from: int = 99
     cluster_miss_fold: bool = True
     shadow_sort: bool = True
-    shadow_sort_primary: bool = False
-    shadow_key2: bool = False
-    shadow_hit_key: bool = False
-    shadow_hit_key_from: int = -1
     pair_broadphase: bool = True
     rank_trace: int = 0
     enable_specular: bool = False
@@ -374,9 +348,6 @@ class RenderConfig:
         if self.tracer not in TRACERS:
             raise ValueError(
                 f"tracer must be one of {TRACERS}, got {self.tracer!r}")
-        if self.sort_key not in SORT_KEYS:
-            raise ValueError(f"sort_key must be one of {SORT_KEYS}, got "
-                             f"{self.sort_key!r}")
         if self.rank_trace not in (0, 2):
             raise ValueError("rank_trace takes 0 (off) or 2 (two candidate "
                              f"clusters a ray), got {self.rank_trace!r}")
