@@ -6,11 +6,12 @@ package's packet walk (``metal_raytracing_tpu.ops.trace.trace_closest`` /
 ``trace_any``, jitted) and against the port's plain packet versions, on
 the CPU.
 
-The builds are ``test_torch_trace_bvh.py``'s: one JAX build of
-plane_sphere (32x32) at three (cluster size, branching) settings, carried
-to the port, with its seeded rays under a partial mask; then a full and an
-empty mask and a ragged ray count, and a ten-triangle soup whose tree is a
-single leaf (``levels == 0``).
+The builds are ``test_torch_trace_bvh_closest.py``'s
+(``torch_port_common.plane_sphere_build``): one JAX build of plane_sphere
+(32x32) at three (cluster size, branching) settings, carried to the port,
+with its seeded rays under a partial mask; then a full and an empty mask
+and a ragged ray count, and a ten-triangle soup whose tree is a single leaf
+(``levels == 0``).
 
 Gates: against the JAX walk the JAX package's own (found masks equal, t
 within rtol 1e-5, source triangles equal; flags equal), since XLA contracts
@@ -21,6 +22,7 @@ two hits tie exactly: the packet orders a block's children by the block's
 least entry).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,11 +34,22 @@ from metal_raytracing_tpu.scene import GeometryTable as JGeometry
 from metal_raytracing_tpu_torch import accel
 from metal_raytracing_tpu_torch.ops import trace as PT
 from metal_raytracing_tpu_torch.scene import GeometryTable
-from test_torch_trace_bvh import (BLOCK, BUILDS, N_RAYS, _j, _jany,
-                                  _jclosest, _mask, _rays, _t,
-                                  assert_closest_gate, builds)  # noqa: F401
+from torch_port_common import (PACKET_BLOCK, PACKET_BUILDS, PACKET_RAYS,
+                               assert_closest_gate, jax_of, packet_mask,
+                               packet_rays, plane_sphere_build, torch_of)
 
-BUILD_IDS = [f"c{c}b{b}" for c, b in BUILDS]
+BUILD_IDS = [f"c{c}b{b}" for c, b in PACKET_BUILDS]
+
+# One compile per build and query: the spec and the block are static.
+_jclosest = jax.jit(JT.trace_closest, static_argnames=("spec", "block"))
+_jany = jax.jit(JT.trace_any, static_argnames=("spec", "block"))
+
+
+@pytest.fixture(scope="module")
+def builds():
+    """(cluster, branching) -> (JAX data, JAX spec, port data, port spec),
+    each built once per test run."""
+    return lambda key: plane_sphere_build(*key)
 
 
 def assert_same_walk(got, ref, what):
@@ -53,40 +66,41 @@ def _tables(tdata, tspec):
     return tdata.geometry, tdata.node_lo, tdata.node_hi, tspec.bvh
 
 
-@pytest.mark.parametrize("build", BUILDS, ids=BUILD_IDS)
+@pytest.mark.parametrize("build", PACKET_BUILDS, ids=BUILD_IDS)
 def test_closest_walk(builds, build):
     """Under a partial mask: against the JAX packet walk and the port's
     plain packet walk; masked rays miss."""
     jdata, jspec, tdata, tspec = builds(build)
-    o, d, _ = _rays(N_RAYS, 1)
-    m = _mask("partial", N_RAYS)
-    got = PT.closest_bvh_walk_ref(*_t(o, d, m), *_tables(tdata, tspec))
-    ref = _jclosest(*_j(o, d, m), jdata.geometry, jdata.node_lo,
-                    jdata.node_hi, spec=jspec.bvh, block=BLOCK)
+    o, d, _ = packet_rays(PACKET_RAYS, 1)
+    m = packet_mask("partial", PACKET_RAYS)
+    got = PT.closest_bvh_walk_ref(*torch_of(o, d, m), *_tables(tdata, tspec))
+    ref = _jclosest(*jax_of(o, d, m), jdata.geometry, jdata.node_lo,
+                    jdata.node_hi, spec=jspec.bvh, block=PACKET_BLOCK)
     assert_closest_gate(got, ref.t, ref.tri, tdata.tri_src.numpy(),
                         "walk vs JAX packet")
-    packet = PT.closest_packet_ref(*_t(o, d, m), *_tables(tdata, tspec),
-                                   block=BLOCK)
+    packet = PT.closest_packet_ref(*torch_of(o, d, m), *_tables(tdata, tspec),
+                                   block=PACKET_BLOCK)
     assert_same_walk(got, packet, "walk vs packet")
     assert int(got.found.sum()) > 0
     assert not got.found[~torch.from_numpy(m)].any()
 
 
-@pytest.mark.parametrize("build", BUILDS, ids=BUILD_IDS)
+@pytest.mark.parametrize("build", PACKET_BUILDS, ids=BUILD_IDS)
 def test_any_walk(builds, build):
     """Occlusion under a partial mask: equal to the JAX packet walk's and
     to the port's plain packet walk's flags."""
     jdata, jspec, tdata, tspec = builds(build)
-    o, d, max_t = _rays(N_RAYS, 3)
-    m = _mask("partial", N_RAYS)
-    got = PT.any_bvh_walk_ref(*_t(o, d, max_t, m),
+    o, d, max_t = packet_rays(PACKET_RAYS, 3)
+    m = packet_mask("partial", PACKET_RAYS)
+    got = PT.any_bvh_walk_ref(*torch_of(o, d, max_t, m),
                               *_tables(tdata, tspec)).numpy()
-    ref = np.asarray(_jany(*_j(o, d, max_t, m), jdata.geometry,
+    ref = np.asarray(_jany(*jax_of(o, d, max_t, m), jdata.geometry,
                            jdata.node_lo, jdata.node_hi, spec=jspec.bvh,
-                           block=BLOCK))
+                           block=PACKET_BLOCK))
     np.testing.assert_array_equal(got, ref)
-    packet = PT.any_packet_ref(*_t(o, d, max_t, m), *_tables(tdata, tspec),
-                               block=BLOCK).numpy()
+    packet = PT.any_packet_ref(*torch_of(o, d, max_t, m),
+                               *_tables(tdata, tspec),
+                               block=PACKET_BLOCK).numpy()
     np.testing.assert_array_equal(got, packet)
     assert 0 < got.sum() and not got[~m].any()
 
@@ -95,35 +109,36 @@ def test_full_empty_and_ragged(builds):
     """The default build under a full and an empty mask, against the JAX
     packet walk and the port's packet walk; a ray count that fills no block
     gives the rays' own results (the walk has no blocks)."""
-    jdata, jspec, tdata, tspec = builds(BUILDS[-1])
+    jdata, jspec, tdata, tspec = builds(PACKET_BUILDS[-1])
     tabs = _tables(tdata, tspec)
     jtabs = (jdata.geometry, jdata.node_lo, jdata.node_hi)
-    o, d, max_t = _rays(N_RAYS, 5)
+    o, d, max_t = packet_rays(PACKET_RAYS, 5)
     for kind in ("full", "none"):
-        m = _mask(kind, N_RAYS)
-        got = PT.closest_bvh_walk_ref(*_t(o, d, m), *tabs)
-        ref = _jclosest(*_j(o, d, m), *jtabs, spec=jspec.bvh, block=BLOCK)
+        m = packet_mask(kind, PACKET_RAYS)
+        got = PT.closest_bvh_walk_ref(*torch_of(o, d, m), *tabs)
+        ref = _jclosest(*jax_of(o, d, m), *jtabs, spec=jspec.bvh,
+                        block=PACKET_BLOCK)
         assert_closest_gate(got, ref.t, ref.tri, tdata.tri_src.numpy(),
                             f"{kind}: walk vs JAX packet")
-        assert_same_walk(got, PT.closest_packet_ref(*_t(o, d, m), *tabs),
+        assert_same_walk(got, PT.closest_packet_ref(*torch_of(o, d, m), *tabs),
                          kind)
-        occ = PT.any_bvh_walk_ref(*_t(o, d, max_t, m), *tabs)
-        jocc = _jany(*_j(o, d, max_t, m), *jtabs, spec=jspec.bvh,
-                     block=BLOCK)
+        occ = PT.any_bvh_walk_ref(*torch_of(o, d, max_t, m), *tabs)
+        jocc = _jany(*jax_of(o, d, max_t, m), *jtabs, spec=jspec.bvh,
+                     block=PACKET_BLOCK)
         np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc),
                                       err_msg=kind)
-        assert torch.equal(occ, PT.any_packet_ref(*_t(o, d, max_t, m),
+        assert torch.equal(occ, PT.any_packet_ref(*torch_of(o, d, max_t, m),
                                                   *tabs)), kind
         assert (int(got.found.sum()) == 0) == (kind == "none")
-    m = _mask("full", N_RAYS)
-    full = PT.closest_bvh_walk_ref(*_t(o, d, m), *tabs)
-    part = PT.closest_bvh_walk_ref(*_t(o[:299], d[:299], m[:299]), *tabs)
+    m = packet_mask("full", PACKET_RAYS)
+    full = PT.closest_bvh_walk_ref(*torch_of(o, d, m), *tabs)
+    part = PT.closest_bvh_walk_ref(*torch_of(o[:299], d[:299], m[:299]), *tabs)
     for a, b in zip((full.t, full.u, full.v, full.tri),
                     (part.t, part.u, part.v, part.tri)):
         assert torch.equal(a[:299], b)
-    occ = PT.any_bvh_walk_ref(*_t(o, d, max_t, m), *tabs)
-    occ_r = PT.any_bvh_walk_ref(*_t(o[:299], d[:299], max_t[:299], m[:299]),
-                                *tabs)
+    occ = PT.any_bvh_walk_ref(*torch_of(o, d, max_t, m), *tabs)
+    occ_r = PT.any_bvh_walk_ref(*torch_of(o[:299], d[:299], max_t[:299],
+                                          m[:299]), *tabs)
     assert torch.equal(occ[:299], occ_r)
 
 
@@ -149,29 +164,30 @@ def test_single_leaf_soup():
         return out
 
     pv0, pe1, pe2 = permute(v0), permute(e1), permute(e2)
-    geom = GeometryTable(*_t(pv0, pe1, pe2, pv0, pv0, pv0),
+    geom = GeometryTable(*torch_of(pv0, pe1, pe2, pv0, pv0, pv0),
                          torch.zeros(spec.padded_triangles, dtype=torch.int32))
-    jgeom = JGeometry(*_j(pv0, pe1, pe2, pv0, pv0, pv0),
+    jgeom = JGeometry(*jax_of(pv0, pe1, pe2, pv0, pv0, pv0),
                       jnp.zeros((spec.padded_triangles,), jnp.int32))
-    o = rng.uniform(-3, 3, (BLOCK, 3)).astype(np.float32)
-    d = rng.uniform(-0.8, 0.8, (BLOCK, 3)).astype(np.float32) - o
+    o = rng.uniform(-3, 3, (PACKET_BLOCK, 3)).astype(np.float32)
+    d = rng.uniform(-0.8, 0.8, (PACKET_BLOCK, 3)).astype(np.float32) - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    max_t = rng.uniform(1.0, 5.0, BLOCK).astype(np.float32)
-    m = _mask("partial", BLOCK)
+    max_t = rng.uniform(1.0, 5.0, PACKET_BLOCK).astype(np.float32)
+    m = packet_mask("partial", PACKET_BLOCK)
     tabs = (geom, torch.from_numpy(lo), torch.from_numpy(hi), spec)
-    got = PT.closest_bvh_walk_ref(*_t(o, d, m), *tabs)
+    got = PT.closest_bvh_walk_ref(*torch_of(o, d, m), *tabs)
     src = np.where(order >= 0, order, -1)
-    ref = JT.trace_closest(*_j(o, d, m), jgeom, *_j(jlo, jhi), jspec,
-                           block=BLOCK)
+    ref = JT.trace_closest(*jax_of(o, d, m), jgeom, *jax_of(jlo, jhi), jspec,
+                           block=PACKET_BLOCK)
     assert_closest_gate(got, ref.t, ref.tri, src, "levels 0 vs JAX packet")
-    ref_bf = JT.trace_closest_bruteforce(*_j(o, d, m), jgeom)
+    ref_bf = JT.trace_closest_bruteforce(*jax_of(o, d, m), jgeom)
     assert_closest_gate(got, ref_bf.t, ref_bf.tri, src,
                         "levels 0 vs JAX brute force")
-    assert_same_walk(got, PT.closest_packet_ref(*_t(o, d, m), *tabs),
+    assert_same_walk(got, PT.closest_packet_ref(*torch_of(o, d, m), *tabs),
                      "levels 0 vs packet")
     assert int(got.found.sum()) > 0
-    occ = PT.any_bvh_walk_ref(*_t(o, d, max_t, m), *tabs).numpy()
-    jocc = np.asarray(JT.trace_any(*_j(o, d, max_t, m), jgeom,
-                                   *_j(jlo, jhi), jspec, block=BLOCK))
+    occ = PT.any_bvh_walk_ref(*torch_of(o, d, max_t, m), *tabs).numpy()
+    jocc = np.asarray(JT.trace_any(*jax_of(o, d, max_t, m), jgeom,
+                                   *jax_of(jlo, jhi), jspec,
+                                   block=PACKET_BLOCK))
     np.testing.assert_array_equal(occ, jocc)
     assert occ.any()

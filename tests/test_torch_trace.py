@@ -3,7 +3,9 @@ against the JAX package's Pallas kernels, run in interpret mode on the CPU.
 
 Both sides see the same scene planes (one JAX build, carried across with
 ``scene_data_from_reference``) and the same rays: coatball's primary pass and
-its bounce-1 pass at 64x48, recorded from the port's renderer.
+its bounce-1 pass at 64x48, recorded from the port's renderer
+(``torch_port_common.coatball_passes``).  The global set's own tests are in
+``tests/test_torch_global_set.py``.
 """
 
 import dataclasses
@@ -15,59 +17,23 @@ import torch
 
 from metal_raytracing_tpu.ops import trace_pallas as TP
 from metal_raytracing_tpu_torch.ops import trace_cuda as TC
-from metal_raytracing_tpu_torch.types import RenderConfig
 from torch_port_common import (MIN_MATCH, NEAR_TIE_REL, assert_near_ties,
-                               build_both, few_torch_threads,  # noqa: F401
-                               record_passes)
-
-W, H = 64, 48
+                               coatball_passes,
+                               few_torch_threads,  # noqa: F401
+                               traversal_block)
 
 
 @pytest.fixture(scope="module")
 def setup():
     """(JAX data, JAX spec, port data, port spec, recorded passes)."""
-    jdata, jspec, tdata, tspec = build_both("coatball", W, H)
+    setup = coatball_passes()
+    tspec = setup[3]
     assert TC._use_flat(tspec.bvh) and tspec.bvh.num_global > 0
-    calls = record_passes(tdata, tspec, RenderConfig(width=W, height=H))
-    return jdata, jspec, tdata, tspec, calls
-
-
-def _block(bounce):
-    """The renderer's traversal block: primary passes use 512."""
-    return 512 if bounce == 0 else 128
+    return setup
 
 
 def _j(x):
     return jnp.asarray(x.numpy())
-
-
-@pytest.mark.parametrize("bounce", [0, 1])
-def test_global_seed_keys_exact(setup, bounce):
-    jdata, jspec, tdata, tspec, calls = setup
-    o, d, m, seed = calls["closest"][bounce]
-    ref = np.asarray(TP.global_seed_keys(_j(o), _j(d), _j(m),
-                                         jdata.tri_planes, jspec.bvh))
-    np.testing.assert_array_equal(seed.numpy(), ref)
-    got = TC.global_seed_keys(o, d, m, tdata.tri_planes, tspec.bvh)
-    np.testing.assert_array_equal(got.numpy(), ref)
-
-
-@pytest.mark.parametrize("bounce", [0, 1])
-def test_global_any_hit_exact(setup, bounce):
-    jdata, jspec, tdata, tspec, calls = setup
-    o, d, mt, _ = calls["any"][bounce]
-    # the shadow pass's pre-fold mask is not recorded: test every lane, on
-    # the shadow segments and on the same segments reversed (toward the
-    # floor, which is in the global set)
-    m = torch.ones(o.shape[0], dtype=torch.bool)
-    hits = 0
-    for dd in (d, -d):
-        ref = np.asarray(TP.global_any_hit(_j(o), _j(dd), _j(mt), _j(m),
-                                           jdata.tri_planes, jspec.bvh))
-        got = TC.global_any_hit(o, dd, mt, m, tdata.tri_planes, tspec.bvh)
-        np.testing.assert_array_equal(got.numpy(), ref)
-        hits += int(ref.sum())
-    assert hits > 0
 
 
 _CLOSEST = {}
@@ -81,7 +47,8 @@ def closest_pair(setup, bounce):
         o, d, m, seed = calls["closest"][bounce]
         ref = TP.trace_closest(_j(o), _j(d), _j(m), jdata.sup_planes,
                                jdata.clu_planes, jdata.tri_planes, jspec.bvh,
-                               block=_block(bounce), seed_key=_j(seed),
+                               block=traversal_block(bounce),
+                               seed_key=_j(seed),
                                exact_uv=False)
         t, tri = TC.closest_flat_ref(o, d, m, tdata.tri_planes, tspec.bvh,
                                      seed)
@@ -128,7 +95,7 @@ def test_any_plain_matches_pallas_kernel(setup, bounce):
     o, d, mt, m = calls["any"][bounce]
     ref = np.asarray(TP.trace_any(
         _j(o), _j(d), _j(mt), _j(m), jdata.sup_planes, jdata.clu_planes,
-        jdata.tri_planes, jspec.bvh, block=_block(bounce),
+        jdata.tri_planes, jspec.bvh, block=traversal_block(bounce),
         seed_global=False))
     got = TC.any_flat_ref(o, d, mt, m, tdata.tri_planes, tspec.bvh).numpy()
     live = m.numpy()

@@ -4,14 +4,16 @@ their primitives (``ops.intersect``) against the JAX package's
 
 The primitives see the same seeded inputs on both sides, degenerate
 triangles and the inverted empty-leaf box included.  The tracers see one
-JAX build of plane_sphere (32x32) at three (cluster size, branching)
-settings, carried to the port, and the same seeded rays (origins above the
-floor, unit directions) under a full, a partial and an empty mask, with
-packets of 128 rays; and a ten-triangle soup whose tree is a single leaf
-(``levels == 0``).  Then the renderer's exact path on that plane_sphere
-build: ``tracer="bruteforce"`` gives the ``bvh`` image, no cluster-tracer
-pass runs whatever the cluster knobs say, and ``render --tracer bvh
---device cpu`` renders.
+JAX build of plane_sphere (32x32) carried to the port
+(``torch_port_common.plane_sphere_build``) with seeded rays at a ragged
+count and on CPU tensors, and a ten-triangle soup whose tree is a single
+leaf (``levels == 0``); their cases at three (cluster size, branching)
+settings under a full, a partial and an empty mask are in
+``tests/test_torch_trace_bvh_closest.py`` and
+``tests/test_torch_trace_bvh_any.py``.  Then the renderer's exact path on
+that plane_sphere build: ``tracer="bruteforce"`` gives the ``bvh`` image, no
+cluster-tracer pass runs whatever the cluster knobs say, and ``render
+--tracer bvh --device cpu`` renders.
 
 The gate is the JAX package's own (``tests/test_trace.py``): found masks
 equal, t within rtol 1e-5, source triangles equal; occlusion flags equal.
@@ -21,7 +23,6 @@ does not, so t and the barycentrics differ in the last bits.
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,80 +41,18 @@ from metal_raytracing_tpu_torch.ops import trace as PT
 from metal_raytracing_tpu_torch.ops import trace_cuda as TC
 from metal_raytracing_tpu_torch.scene import GeometryTable
 from metal_raytracing_tpu_torch.types import RenderConfig
-from torch_port_common import (assert_image_gate, build_both,  # noqa: F401
-                               few_torch_threads)
-
-BUILDS = [(64, 8), (32, 2), (384, 8)]
-# every build under a full and a partial mask, the default one under an
-# empty mask too
-CASES = ([(b, m) for b in BUILDS for m in ("full", "partial")]
-         + [((384, 8), "none")])
-CASE_IDS = [f"c{b[0]}b{b[1]}-{m}" for b, m in CASES]
-N_RAYS = 512
-BLOCK = 128
-T_RTOL = 1e-5
-
-# One compile per build and query: the spec and the block are static.
-_jclosest = jax.jit(JT.trace_closest, static_argnames=("spec", "block"))
-_jany = jax.jit(JT.trace_any, static_argnames=("spec", "block"))
-_jbrute = jax.jit(JT.trace_closest_bruteforce)
-
-
-def _rays(n, seed):
-    """(o, d, max_t) numpy float32: origins in [-3, 3]^3 above the floor
-    (hits likely), unit directions, segment lengths in [0.5, 6]."""
-    rng = np.random.RandomState(seed)
-    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
-    o[:, 1] = np.abs(o[:, 1])
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    max_t = rng.uniform(0.5, 6.0, n).astype(np.float32)
-    return o, d, max_t
-
-
-def _mask(kind, n, seed=7):
-    if kind == "full":
-        return np.ones(n, bool)
-    if kind == "none":
-        return np.zeros(n, bool)
-    return np.random.RandomState(seed).rand(n) < 0.6
+from torch_port_common import (PACKET_BLOCK, PACKET_BUILDS, PACKET_RAYS,
+                               assert_closest_gate, assert_image_gate,
+                               few_torch_threads,  # noqa: F401
+                               jax_of, packet_mask, packet_rays,
+                               plane_sphere_build, torch_of)
 
 
 @pytest.fixture(scope="module")
 def builds():
     """(cluster, branching) -> (JAX data, JAX spec, port data, port spec),
-    each built on first use."""
-    cache = {}
-
-    def get(key):
-        if key not in cache:
-            cache[key] = build_both("plane_sphere", 32, 32, *key)
-        return cache[key]
-
-    return get
-
-
-def _t(*arrays):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
-
-
-def _j(*arrays):
-    return tuple(jnp.asarray(a) for a in arrays)
-
-
-def assert_closest_gate(got, ref_t, ref_tri, tri_src, what):
-    """tests/test_trace.py's gate: found equal, t rtol 1e-5 on hits, source
-    triangles equal."""
-    ref_t, ref_tri = np.asarray(ref_t), np.asarray(ref_tri)
-    tri = got.tri.numpy()
-    np.testing.assert_array_equal(tri >= 0, ref_tri >= 0, err_msg=what)
-    hits = ref_tri >= 0
-    np.testing.assert_allclose(got.t.numpy()[hits], ref_t[hits],
-                               rtol=T_RTOL, err_msg=what)
-    np.testing.assert_array_equal(tri_src[tri[hits]], tri_src[ref_tri[hits]],
-                                  err_msg=what)
-    misses = ~hits
-    assert (got.t.numpy()[misses] == np.float32(PI.BIG_T)).all(), what
+    each built once per test run."""
+    return lambda key: plane_sphere_build(*key)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +79,7 @@ def test_ray_aabb_equals_reference():
     inverted empty-leaf sentinel."""
     rng = np.random.RandomState(1)
     n = 512
-    o, d, max_t = _rays(n, 2)
+    o, d, max_t = packet_rays(n, 2)
     c = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
     h = rng.uniform(0.05, 2.0, (n, 3)).astype(np.float32)
     lo, hi = c - h, c + h
@@ -148,9 +87,9 @@ def test_ray_aabb_equals_reference():
     hi[:32] = -np.float32(np.inf)
     lo[32:64], hi[32:64] = o[32:64] - 0.5, o[32:64] + 0.5  # o inside
     inv = PI.safe_inverse(torch.from_numpy(d))
-    tn, hit = PI.ray_aabb(*_t(o), inv, *_t(lo, hi, max_t))
-    jtn, jhit = JI.ray_aabb(*_j(o), JI.safe_inverse(jnp.asarray(d)),
-                            *_j(lo, hi, max_t))
+    tn, hit = PI.ray_aabb(*torch_of(o), inv, *torch_of(lo, hi, max_t))
+    jtn, jhit = JI.ray_aabb(*jax_of(o), JI.safe_inverse(jnp.asarray(d)),
+                            *jax_of(lo, hi, max_t))
     np.testing.assert_array_equal(hit.numpy(), np.asarray(jhit))
     np.testing.assert_array_equal(tn.numpy()[hit.numpy()],
                                   np.asarray(jtn)[np.asarray(jhit)])
@@ -164,7 +103,7 @@ def test_moller_trumbore_equals_reference():
     within 1e-6 relative (the two packages may order the three-term sums
     differently)."""
     rng = np.random.RandomState(3)
-    o, d, _ = _rays(128, 4)
+    o, d, _ = packet_rays(128, 4)
     v0 = rng.uniform(-3, 3, (96, 3)).astype(np.float32)
     e1 = rng.uniform(-2, 2, (96, 3)).astype(np.float32)
     e2 = rng.uniform(-2, 2, (96, 3)).astype(np.float32)
@@ -172,8 +111,8 @@ def test_moller_trumbore_equals_reference():
     e2[8:16] = 2.0 * e1[8:16]  # collinear edges: det = 0
     e1[16:24] *= 1e-7  # |det| below 1e-12
     args = (o[:, None], d[:, None], v0[None], e1[None], e2[None])
-    t, u, v, hit = PI.moller_trumbore(*_t(*args))
-    jt, ju, jv, jhit = JI.moller_trumbore(*_j(*args))
+    t, u, v, hit = PI.moller_trumbore(*torch_of(*args))
+    jt, ju, jv, jhit = JI.moller_trumbore(*jax_of(*args))
     hit = hit.numpy()
     np.testing.assert_array_equal(hit, np.asarray(jhit))
     assert not hit[:, :24].any() and 0 < hit.sum() < hit.size
@@ -181,7 +120,7 @@ def test_moller_trumbore_equals_reference():
         np.testing.assert_allclose(a.numpy()[hit], np.asarray(b)[hit],
                                    rtol=1e-6, atol=1e-6)
     # t_max bounds the segment, t_min the start
-    _, _, _, hit_t = PI.moller_trumbore(*_t(*args), t_max=1.0)
+    _, _, _, hit_t = PI.moller_trumbore(*torch_of(*args), t_max=1.0)
     assert not (hit_t.numpy() & ~(hit & (t.numpy() <= 1.0))).any()
 
 
@@ -190,71 +129,23 @@ def test_moller_trumbore_equals_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("build,mask_kind", CASES, ids=CASE_IDS)
-def test_closest_matches_reference(builds, build, mask_kind):
-    """The plain packet walk and the brute force against the JAX packet
-    walk and brute force, and against each other (same rounding: t bit for
-    bit, same slots)."""
-    jdata, jspec, tdata, tspec = builds(build)
-    assert tspec.bvh.max_stack == jspec.bvh.max_stack
-    o, d, _ = _rays(N_RAYS, 1)
-    m = _mask(mask_kind, N_RAYS)
-    ref = _jclosest(*_j(o, d, m), jdata.geometry, jdata.node_lo,
-                    jdata.node_hi, spec=jspec.bvh, block=BLOCK)
-    got = PT.trace_closest(*_t(o, d, m), tdata.geometry, tdata.node_lo,
-                           tdata.node_hi, tspec.bvh, BLOCK)
-    got_bf = PT.trace_closest_bruteforce(*_t(o, d, m), tdata.geometry)
-    src = tdata.tri_src.numpy()
-    assert_closest_gate(got, ref.t, ref.tri, src, "packet vs JAX packet")
-    assert_closest_gate(got_bf, ref.t, ref.tri, src,
-                        "brute force vs JAX packet")
-    if build == BUILDS[-1]:  # the JAX brute force compiles per table size
-        ref_bf = _jbrute(*_j(o, d, m), jdata.geometry)
-        assert_closest_gate(got_bf, ref_bf.t, ref_bf.tri, src,
-                            "brute force vs JAX brute force")
-    assert torch.equal(got.t, got_bf.t) and torch.equal(got.tri, got_bf.tri)
-    assert torch.equal(got.u, got_bf.u) and torch.equal(got.v, got_bf.v)
-    hits = int(got.found.sum())
-    assert (hits == 0) == (mask_kind == "none")
-    assert not got.found[~torch.from_numpy(m)].any()
-
-
-@pytest.mark.parametrize("build,mask_kind", CASES, ids=CASE_IDS)
-def test_any_matches_reference(builds, build, mask_kind):
-    """Occlusion of seeded segments: the plain packet walk equal to the JAX
-    packet walk and to both brute forces."""
-    jdata, jspec, tdata, tspec = builds(build)
-    o, d, max_t = _rays(N_RAYS, 3)
-    m = _mask(mask_kind, N_RAYS)
-    ref = np.asarray(_jany(*_j(o, d, max_t, m), jdata.geometry,
-                           jdata.node_lo, jdata.node_hi, spec=jspec.bvh,
-                           block=BLOCK))
-    got = PT.trace_any(*_t(o, d, max_t, m), tdata.geometry, tdata.node_lo,
-                       tdata.node_hi, tspec.bvh, BLOCK).numpy()
-    got_bf = PT.trace_any_bruteforce(*_t(o, d, max_t, m),
-                                     tdata.geometry).numpy()
-    np.testing.assert_array_equal(got, ref)
-    np.testing.assert_array_equal(got_bf, ref)
-    assert (got.sum() == 0) == (mask_kind == "none")
-    assert not got[~m].any()
-
-
 def test_ragged_ray_count_and_block(builds):
     """A ray count that fills no block gives the per-ray results of whole
     blocks; the packet size changes no hit distance."""
     _, _, tdata, tspec = builds((64, 8))
-    o, d, max_t = _rays(N_RAYS, 5)
-    m = _mask("partial", N_RAYS)
+    o, d, max_t = packet_rays(PACKET_RAYS, 5)
+    m = packet_mask("partial", PACKET_RAYS)
     args = (tdata.geometry, tdata.node_lo, tdata.node_hi, tspec.bvh)
-    full = PT.closest_packet_ref(*_t(o, d, m), *args, block=BLOCK)
-    ragged = PT.closest_packet_ref(*_t(o[:300], d[:300], m[:300]), *args,
-                                   block=BLOCK)
+    full = PT.closest_packet_ref(*torch_of(o, d, m), *args, block=PACKET_BLOCK)
+    ragged = PT.closest_packet_ref(*torch_of(o[:300], d[:300], m[:300]),
+                                   *args, block=PACKET_BLOCK)
     assert torch.equal(ragged.t, full.t[:300])
-    small = PT.closest_packet_ref(*_t(o, d, m), *args, block=32)
+    small = PT.closest_packet_ref(*torch_of(o, d, m), *args, block=32)
     assert torch.equal(small.t, full.t)
-    occ = PT.any_packet_ref(*_t(o, d, max_t, m), *args, block=BLOCK)
-    occ_r = PT.any_packet_ref(*_t(o[:300], d[:300], max_t[:300], m[:300]),
-                              *args, block=BLOCK)
+    occ = PT.any_packet_ref(*torch_of(o, d, max_t, m), *args,
+                            block=PACKET_BLOCK)
+    occ_r = PT.any_packet_ref(*torch_of(o[:300], d[:300], max_t[:300],
+                                        m[:300]), *args, block=PACKET_BLOCK)
     assert torch.equal(occ_r, occ[:300])
 
 
@@ -262,21 +153,22 @@ def test_cpu_tensors_take_the_plain_versions(builds):
     """On CPU tensors the wrappers run the plain packet walk (no launch is
     counted); tables that do not fit the spec raise."""
     _, _, tdata, tspec = builds((64, 8))
-    o, d, max_t = _rays(256, 6)
+    o, d, max_t = packet_rays(256, 6)
     m = np.ones(256, bool)
     args = (tdata.geometry, tdata.node_lo, tdata.node_hi, tspec.bvh)
     before = (PT.trace_closest.launches, PT.trace_any.launches)
-    hit = PT.trace_closest(*_t(o, d, m), *args)
-    ref = PT.closest_packet_ref(*_t(o, d, m), *args)
+    hit = PT.trace_closest(*torch_of(o, d, m), *args)
+    ref = PT.closest_packet_ref(*torch_of(o, d, m), *args)
     assert torch.equal(hit.tri, ref.tri) and torch.equal(hit.t, ref.t)
-    occ = PT.trace_any(*_t(o, d, max_t, m), *args)
-    assert torch.equal(occ, PT.any_packet_ref(*_t(o, d, max_t, m), *args))
+    occ = PT.trace_any(*torch_of(o, d, max_t, m), *args)
+    assert torch.equal(occ, PT.any_packet_ref(*torch_of(o, d, max_t, m),
+                                              *args))
     assert (PT.trace_closest.launches, PT.trace_any.launches) == before
     with pytest.raises(ValueError):
-        PT.trace_closest(*_t(o, d, m), tdata.geometry, tdata.node_lo[:-1],
-                         tdata.node_hi, tspec.bvh)
+        PT.trace_closest(*torch_of(o, d, m), tdata.geometry,
+                         tdata.node_lo[:-1], tdata.node_hi, tspec.bvh)
     with pytest.raises(ValueError):
-        PT.trace_any(*_t(o, d, max_t.astype(np.float64), m), *args)
+        PT.trace_any(*torch_of(o, d, max_t.astype(np.float64), m), *args)
 
 
 def test_single_cluster_scene():
@@ -300,29 +192,31 @@ def test_single_cluster_scene():
         return out
 
     pv0, pe1, pe2 = permute(v0), permute(e1), permute(e2)
-    geom = GeometryTable(*_t(pv0, pe1, pe2, pv0, pv0, pv0),
+    geom = GeometryTable(*torch_of(pv0, pe1, pe2, pv0, pv0, pv0),
                          torch.zeros(spec.padded_triangles, dtype=torch.int32))
-    jgeom = JGeometry(*_j(pv0, pe1, pe2, pv0, pv0, pv0),
+    jgeom = JGeometry(*jax_of(pv0, pe1, pe2, pv0, pv0, pv0),
                       jnp.zeros((spec.padded_triangles,), jnp.int32))
     # rays from around the soup toward its centre
-    o = rng.uniform(-3, 3, (BLOCK, 3)).astype(np.float32)
-    d = rng.uniform(-0.8, 0.8, (BLOCK, 3)).astype(np.float32) - o
+    o = rng.uniform(-3, 3, (PACKET_BLOCK, 3)).astype(np.float32)
+    d = rng.uniform(-0.8, 0.8, (PACKET_BLOCK, 3)).astype(np.float32) - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    max_t = rng.uniform(1.0, 5.0, BLOCK).astype(np.float32)
-    m = _mask("partial", BLOCK)
+    max_t = rng.uniform(1.0, 5.0, PACKET_BLOCK).astype(np.float32)
+    m = packet_mask("partial", PACKET_BLOCK)
     tables = (torch.from_numpy(lo), torch.from_numpy(hi), spec)
-    got = PT.trace_closest(*_t(o, d, m), geom, *tables, BLOCK)
-    ref = JT.trace_closest(*_j(o, d, m), jgeom, *_j(jlo, jhi), jspec,
-                           block=BLOCK)
-    ref_bf = JT.trace_closest_bruteforce(*_j(o, d, m), jgeom)
+    got = PT.trace_closest(*torch_of(o, d, m), geom, *tables, PACKET_BLOCK)
+    ref = JT.trace_closest(*jax_of(o, d, m), jgeom, *jax_of(jlo, jhi), jspec,
+                           block=PACKET_BLOCK)
+    ref_bf = JT.trace_closest_bruteforce(*jax_of(o, d, m), jgeom)
     src = np.where(order >= 0, order, -1)
     assert_closest_gate(got, ref.t, ref.tri, src, "levels 0 vs JAX packet")
     assert_closest_gate(got, ref_bf.t, ref_bf.tri, src,
                         "levels 0 vs JAX brute force")
     assert int(got.found.sum()) > 0
-    occ = PT.trace_any(*_t(o, d, max_t, m), geom, *tables, BLOCK).numpy()
-    jocc = np.asarray(JT.trace_any(*_j(o, d, max_t, m), jgeom,
-                                   *_j(jlo, jhi), jspec, block=BLOCK))
+    occ = PT.trace_any(*torch_of(o, d, max_t, m), geom, *tables,
+                       PACKET_BLOCK).numpy()
+    jocc = np.asarray(JT.trace_any(*jax_of(o, d, max_t, m), jgeom,
+                                   *jax_of(jlo, jhi), jspec,
+                                   block=PACKET_BLOCK))
     np.testing.assert_array_equal(occ, jocc)
 
 
@@ -341,7 +235,7 @@ def port_image(tdata, tspec, w, h, tracer="bvh", **kw):
 def test_bruteforce_gives_the_bvh_image(builds):
     """The oracle and the BVH walk find the same hits at 16x16 under
     compaction=True: the same image."""
-    _, _, tdata, tspec = builds(BUILDS[-1])
+    _, _, tdata, tspec = builds(PACKET_BUILDS[-1])
     bvh, s_bvh = port_image(tdata, tspec, 16, 16, compaction=True)
     brute, s_brute = port_image(tdata, tspec, 16, 16, "bruteforce",
                                 compaction=True)
@@ -354,7 +248,7 @@ def test_exact_path_skips_the_cluster_passes(builds, monkeypatch):
     """The exact tracers test the global set themselves and sort by the
     dir_major / light-major keys: no host-side global pass, no cluster
     broad phase, no rank walk runs, whatever the cluster knobs say."""
-    _, _, tdata, tspec = builds(BUILDS[-1])
+    _, _, tdata, tspec = builds(PACKET_BUILDS[-1])
 
     def refuse(*args, **kwargs):
         raise AssertionError("a cluster-tracer pass ran on the exact path")
