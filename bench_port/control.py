@@ -48,14 +48,13 @@ def control_numbers(cell_name: str, seed: int, samples: int, device: str,
     from bench_port import check as CK
     from bench_port.harness import load_benchmark, resolve
     from bench_port.reference import Binned, build_scene, render_pixels, tf32
-    from bench_port.scenegen import make_model
+    from bench_port.scenegen import scene_inputs
 
     cell = resolve(load_benchmark(ROOT), cell_name)
     config = cell["config"]
     w, h = width or config["width"], height or config["height"]
-    models = {i["model"]: make_model(i["model"])
-              for i in config["instances"]}
-    rs = build_scene(config, models, device, w, h)
+    models, env_hdr = scene_inputs(config)
+    rs = build_scene(config, models, device, w, h, env_hdr)
     pix = CK.sample_pixels(seed, w, h, pixels or cell["check"]["pixels"])
     opts = {**cell["traffic"]["render_config"], "seed": seed}
     ref = render_pixels(rs, Binned(rs.v0, rs.e1, rs.e2), opts, pix, samples)

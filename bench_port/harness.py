@@ -9,9 +9,10 @@ reader, ``metrics/<name>.py``, from the run's record.  Nothing here names
 a cell, a configuration or a metric: new ones are new files and entries.
 
 The run: set-up (generate the scene's models from the frozen generators,
-write them as OBJ + MTL files under ``TMPDIR``, load them with the
-program's OBJ loader, build ``Renderer(scene, cfg)``, then one step, which captures the
-step's CUDA graph), then a
+and its environment map where the configuration has one, write them as
+OBJ + MTL files and a ``.hdr`` file under ``TMPDIR``, load them with the
+program's OBJ and HDR readers, build ``Renderer(scene, cfg)``, then one
+step, which captures the step's CUDA graph), then a
 closed loop of ``Renderer.step(k)`` + ``torch.cuda.synchronize()`` for
 ``--seconds`` seconds, each step timed on the host clock.  With ``--trace 1`` one eager
 sample is profiled after the window for the layer times, and a short
@@ -101,25 +102,33 @@ def forbidden_modules() -> List[str]:
 # -- set-up --------------------------------------------------------------
 
 def _port_scene(config: dict, models: Dict[str, dict], width: int,
-                height: int, times: dict):
+                height: int, times: dict, env_hdr: Optional[bytes] = None):
     """The program's ``Scene`` of the configuration: the models written as
-    OBJ + MTL files and loaded through the program's OBJ loader."""
+    OBJ + MTL files and loaded through the program's OBJ loader, the
+    environment map (``.hdr`` bytes) written beside them and read by the
+    program's HDR reader."""
     from metal_raytracing_tpu_torch import types as T
+    from metal_raytracing_tpu_torch.io.image import read_hdr
     from metal_raytracing_tpu_torch.io.obj import load_obj
     from metal_raytracing_tpu_torch.scene import Scene
 
     from .scenegen import write_obj
 
-    loaded = {}
     with tempfile.TemporaryDirectory(prefix="bench_port_scene_") as tmp:
         paths = {name: write_obj(model, os.path.join(tmp, f"{name}.obj"))
                  for name, model in models.items()}
+        env_path = os.path.join(tmp, "env.hdr")
+        if env_hdr is not None:
+            with open(env_path, "wb") as f:
+                f.write(env_hdr)
         t0 = time.perf_counter()
-        for name, path in paths.items():
-            loaded[name] = load_obj(path)
+        loaded = {name: load_obj(path) for name, path in paths.items()}
+        env = read_hdr(env_path) if env_hdr is not None else None
         times["parse_s"] = time.perf_counter() - t0
     scene = Scene(width, height, default_lights=False)
     scene.name = config["name"]
+    if env is not None:
+        scene.env_map = env
     make = {"area": lambda l: T.area_light(l["position"], l["forward"],
                                            l["right"], l["up"], l["color"]),
             "spot": lambda l: T.spot_light(l["position"], l["direction"],
@@ -246,7 +255,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     from . import check as CK
     from . import yardstick
     from .reference import Binned, build_scene, render_pixels
-    from .scenegen import make_model
+    from .scenegen import scene_inputs
 
     overrides = overrides or {}
     bench = bench or load_benchmark()
@@ -260,10 +269,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
 
     # set-up: scene, build, the first step
     tg = time.perf_counter()
-    models = {i["model"]: None for i in config["instances"]}
-    models = {name: make_model(name) for name in models}
+    models, env_hdr = scene_inputs(config)
     times["generate_s"] = time.perf_counter() - tg
-    scene = _port_scene(config, models, width, height, times)
+    scene = _port_scene(config, models, width, height, times, env_hdr)
     cfg = _render_config(cell, seed, width, height,
                          overrides.get("render_config"))
     tb = time.perf_counter()
@@ -335,7 +343,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     tr = time.perf_counter()
-    rs = build_scene(config, models, dev, width, height)
+    rs = build_scene(config, models, dev, width, height, env_hdr)
     opts = {**traffic["render_config"],
             **overrides.get("render_config", {}), "seed": seed}
     reference = render_pixels(rs, Binned(rs.v0, rs.e1, rs.e2), opts, pixels,

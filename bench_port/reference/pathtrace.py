@@ -9,9 +9,14 @@ the emitter's cosine; spot: inside its cone; 1/d^2 falloff), a shadow ray
 from 1e-3 off the surface, and a cosine-weighted bounce.  The extensions
 of the path tracer's configuration: ``enable_emission`` adds the hit
 material's Ke, ``enable_specular`` picks per path between the diffuse
-lobe and a Phong lobe about the mirror direction by Ks against Kd.  The
-Halton dimensions are the shader's, the extensions' past them.  A pixel's
-value is the mean over its samples ``0 .. N-1``, summed in float64.
+lobe and a Phong lobe about the mirror direction by Ks against Kd;
+``env_map`` adds, for a ray that leaves the scene, the throughput times
+the environment map's texel in its direction; ``enable_refraction`` sends
+the share ``1 - d`` of the rays that hit a dielectric (Ni > 0, d < 1)
+through it by Snell's law, or off it by Schlick's Fresnel term or total
+internal reflection.  The Halton dimensions are the shader's, the
+extensions' past them.  A pixel's value is the mean over its samples
+``0 .. N-1``, summed in float64.
 
 ``rnd`` is applied to every stored intermediate: identity for the float32
 reference, a rounding for the lower-precision control.
@@ -24,18 +29,19 @@ import math
 import numpy as np
 import torch
 
-from .sampling import (align_with_normal, bounce_dim, cosine_hemisphere,
-                       halton, norm, pixel_offsets)
+from .sampling import (PRIMES, align_with_normal, bounce_dim,
+                       cosine_hemisphere, halton, norm, pixel_offsets)
 from .scene import AREA, POINT, SPOT, SUN, RefScene
 
 __all__ = ["render_pixels", "trace_paths", "tf32"]
 
 # The reference follows the RenderConfig fields that change the image
-# (max_bounces, enable_specular, enable_emission, seed, rand_offset_bits;
-# the program's defaults 3, off, off, 0, 20); the rest of a traffic's
-# fields (tracer, compaction, sort keys, dispatch) permute or schedule the
-# same work.  It does not model these, and refuses a traffic that sets them.
-UNSUPPORTED = ("enable_refraction", "enable_textures", "env_map")
+# (max_bounces, enable_specular, enable_emission, env_map,
+# enable_refraction, seed, rand_offset_bits; the program's defaults 3,
+# off, off, off, off, 0, 20); the rest of a traffic's fields (tracer,
+# compaction, sort keys, dispatch) permute or schedule the same work.  It
+# does not model textures (texture coordinates, map_Kd images), and
+# refuses a traffic that turns them on.
 
 
 def _ident(x):
@@ -56,6 +62,31 @@ def _normalize(v, rnd):
 
 def _dot(a, b):
     return (a * b).sum(-1)
+
+
+def _last_dim(opts: dict) -> int:
+    """The highest Halton dimension a path of ``opts`` draws: the light
+    and bounce draws of the last bounce, then past all of them one
+    dimension a bounce for the lobe choice and, with refraction, one for
+    transmission and one for the Fresnel choice."""
+    b = opts.get("max_bounces", 3)
+    if opts.get("enable_refraction"):
+        return bounce_dim(b, 0) + 3 * b - 1
+    if opts.get("enable_specular"):
+        return bounce_dim(b, 0) + b - 1
+    return bounce_dim(b - 1, 4)
+
+
+def env_texel(env, d, rnd):
+    """The texels of the lat-long map ``env`` (He, We, 3) in directions
+    ``d``: u = atan2(d_x, -d_z) / 2 pi + 1/2 across, v = acos(d_y) / pi
+    down, each truncated to its texel and held inside the map."""
+    he, we = env.shape[0], env.shape[1]
+    u = rnd(torch.atan2(d[:, 0], -d[:, 2]) / (2.0 * math.pi) + 0.5)
+    v = rnd(torch.acos(torch.clamp(d[:, 1], -1.0, 1.0)) / math.pi)
+    xi = torch.clamp((u * we).to(torch.int64), 0, we - 1)
+    yi = torch.clamp((v * he).to(torch.int64), 0, he - 1)
+    return env[yi, xi]
 
 
 def sample_light(s: RefScene, li, u, pos, rnd):
@@ -108,9 +139,14 @@ def trace_paths(s: RefScene, tracer, opts: dict, px, py, idx,
     color = torch.ones((n, 3), device=dev)
     accum = torch.zeros((n, 3), device=dev)
     ids = torch.arange(n, device=dev)  # the paths still alive
+    env = s.env if opts.get("env_map") else None
     for b in range(bounces):
         t, tri, u, v = tracer.closest(o, d)
         keep = tri >= 0
+        if env is not None and not bool(keep.all()):
+            out = ~keep
+            accum[ids[out]] = rnd(accum[ids[out]]
+                                  + color[out] * env_texel(env, d[out], rnd))
         ids, o, d, color, t, tri, u, v = (x[keep] for x in
                                           (ids, o, d, color, t, tri, u, v))
         if ids.numel() == 0:
@@ -139,8 +175,13 @@ def trace_paths(s: RefScene, tracer, opts: dict, px, py, idx,
         if sel.numel():
             occluded[sel] = tracer.any(so[sel], ldir[sel], ldist[sel] - 1e-3)
         visible = shadow & ~occluded
+        nee = lcolor * dcolor
+        if opts.get("enable_refraction"):
+            # a dielectric's diffuse layer carries the share d
+            glass = (s.dissolve[mid] < 1.0) & (s.ni[mid] > 0.0)
+            nee = rnd(nee * torch.where(glass, s.dissolve[mid], 1.0)[:, None])
         accum[ids] = rnd(accum[ids] + torch.where(
-            visible[:, None], lcolor * dcolor, torch.zeros_like(dcolor)))
+            visible[:, None], nee, torch.zeros_like(dcolor)))
         r_b = torch.stack([halton(i, bounce_dim(b, 3)),
                            halton(i, bounce_dim(b, 4))], -1)
         d_next = rnd(align_with_normal(cosine_hemisphere(r_b), ns))
@@ -165,8 +206,49 @@ def trace_paths(s: RefScene, tracer, opts: dict, px, py, idx,
             d_next = rnd(torch.where(take[:, None], d_spec, d_next))
             color_next = rnd(torch.where(take[:, None], color * ks / pc,
                                          color * kd / (1.0 - pc)))
-        o, d, color = so, d_next, color_next
+        o_next = so
+        if opts.get("enable_refraction"):
+            o_next, d_next, color_next = _dielectric(
+                s, mid, i, b, bounces, pos, d, ns, color, kd, o_next, d_next,
+                color_next, rnd)
+        o, d, color = o_next, d_next, color_next
     return accum
+
+
+def _dielectric(s: RefScene, mid, i, b, bounces, pos, d, ns, color, kd,
+                o_next, d_next, color_next, rnd):
+    """The continuation of the paths that hit a dielectric and draw
+    transmission (Halton dimension ``2 + 6B + b`` >= its d): reflected
+    about the normal that faces the ray with Schlick's probability
+    (dimension ``2 + 7B + b``; always under total internal reflection),
+    else refracted by Snell's law; tinted by the glass's Kd where it has
+    one; leaving 1e-3 off the surface on the side it goes to.  The other
+    paths keep (``o_next``, ``d_next``, ``color_next``)."""
+    ext = bounce_dim(bounces, 0) + b
+    ior, dis = s.ni[mid], s.dissolve[mid]
+    through = ((dis < 1.0) & (ior > 0.0)
+               & (halton(i, ext + bounces) >= dis))
+    inside = _dot(d, ns) > 0.0  # a back-face hit: the ray leaves the glass
+    n_eff = rnd(torch.where(inside[:, None], -ns, ns))
+    ci = rnd(torch.clamp(-_dot(d, n_eff), 0.0, 1.0))
+    ior = torch.clamp(ior, min=1.0 + 1e-6)
+    eta = torch.where(inside, ior, 1.0 / ior)
+    sin2_t = rnd(eta * eta * (1.0 - ci * ci))
+    tir = sin2_t > 1.0
+    f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
+    fresnel = rnd(torch.where(tir, 1.0, f0 + (1.0 - f0) * (1.0 - ci) ** 5))
+    mirror = halton(i, ext + 2 * bounces) < fresnel
+    d_refl = _normalize(d + 2.0 * ci[:, None] * n_eff, rnd)
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    d_refr = _normalize(eta[:, None] * d + (eta * ci - cos_t)[:, None]
+                        * n_eff, rnd)
+    d_glass = torch.where(mirror[:, None], d_refl, d_refr)
+    o_glass = rnd(pos + torch.where(mirror[:, None], n_eff, -n_eff) * 1e-3)
+    tint = torch.where((kd.amax(-1) > 1e-4)[:, None], kd, 1.0)
+    sel = through[:, None]
+    return (torch.where(sel, o_glass, o_next),
+            torch.where(sel, d_glass, d_next),
+            rnd(torch.where(sel, color * tint, color_next)))
 
 
 def render_pixels(s: RefScene, tracer, opts: dict, pixels, samples: int,
@@ -174,9 +256,15 @@ def render_pixels(s: RefScene, tracer, opts: dict, pixels, samples: int,
     """(P, 3) float64: the mean over samples 0 .. ``samples``-1 of each
     flat pixel index in ``pixels`` (row-major), ``ray_budget`` paths at a
     time."""
-    bad = [k for k in UNSUPPORTED if opts.get(k)]
-    if bad:
-        raise NotImplementedError(f"the reference does not model {bad}")
+    if opts.get("enable_textures"):
+        raise NotImplementedError(
+            "the reference does not model enable_textures: the benchmark's "
+            "OBJ files carry no texture coordinates and no map_Kd image")
+    if _last_dim(opts) >= len(PRIMES):
+        raise ValueError(
+            f"max_bounces {opts.get('max_bounces', 3)} with these extensions "
+            f"draws Halton dimension {_last_dim(opts)}; the table of primes "
+            f"holds dimensions 0-{len(PRIMES) - 1}")
     dev = s.v0.device
     pix = torch.as_tensor(np.asarray(pixels, np.int64), device=dev)
     off = torch.as_tensor(pixel_offsets(opts.get("seed", 0),

@@ -5,18 +5,19 @@ Each instance's transform is ``T @ Rx @ Ry @ Rz @ S`` (``Mesh.swift:21-24``,
 ``Utilities.swift:113-165``), applied to positions and, as the reference
 shader does, with the plain matrix to normals (``Raytracing.metal:267``).
 The camera's right and up vectors are scaled by the image plane's half
-extents (``Scene.swift:40-57``).
+extents (``Scene.swift:40-57``).  An environment map is decoded from the
+same ``.hdr`` bytes the program reads (:func:`decode_hdr`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["RefScene", "build_scene"]
+__all__ = ["RefScene", "build_scene", "decode_hdr"]
 
 AREA, SPOT, POINT, SUN = 4, 2, 3, 1
 _TYPES = {"area": AREA, "spot": SPOT, "point": POINT, "sun": SUN}
@@ -56,6 +57,8 @@ class RefScene:
     ks: torch.Tensor  # (M, 3) specular color
     ke: torch.Tensor  # (M, 3) emission
     ns: torch.Tensor  # (M,) specular exponent
+    ni: torch.Tensor  # (M,) index of refraction
+    dissolve: torch.Tensor  # (M,) opacity: a dielectric has < 1
     lights: Dict[str, torch.Tensor]  # each (L, ...)
     cam_pos: torch.Tensor  # (3,)
     cam_right: torch.Tensor  # (3,) scaled by the half width
@@ -63,6 +66,22 @@ class RefScene:
     cam_forward: torch.Tensor  # (3,)
     width: int
     height: int
+    env: Optional[torch.Tensor] = None  # (He, We, 3) lat-long radiance
+
+
+def decode_hdr(data: bytes) -> np.ndarray:
+    """(H, W, 3) float32 texels of a flat Radiance RGBE file: each
+    channel's mantissa m and the texel's exponent e give m x 2^(e - 136),
+    0 where e is 0."""
+    _, _, rest = data.partition(b"\n\n")
+    dims, _, body = rest.partition(b"\n")
+    y, h, x, w = dims.split()
+    if (y, x) != (b"-Y", b"+X"):
+        raise ValueError(f"not a top-down, left-right map: {dims!r}")
+    rgbe = np.frombuffer(body, np.uint8).reshape(int(h), int(w), 4)
+    e = rgbe[..., 3:].astype(np.int32)
+    scale = np.where(e == 0, 0.0, np.ldexp(1.0, e - 136)).astype(np.float32)
+    return rgbe[..., :3].astype(np.float32) * scale
 
 
 def _f32(x, dev):
@@ -70,8 +89,10 @@ def _f32(x, dev):
 
 
 def build_scene(config: dict, models: Dict[str, dict], device,
-                width: int = None, height: int = None) -> RefScene:
-    """The scene of ``config`` (its instances of ``models``), at the
+                width: int = None, height: int = None,
+                env_hdr: Optional[bytes] = None) -> RefScene:
+    """The scene of ``config`` (its instances of ``models``, its
+    environment map from the ``.hdr`` bytes ``env_hdr``), at the
     configuration's image size unless ``width`` / ``height`` are given."""
     w = width or config["width"]
     h = height or config["height"]
@@ -86,7 +107,8 @@ def build_scene(config: dict, models: Dict[str, dict], device,
         for sub in model["submeshes"]:
             mt = sub["material"]
             key = (mt["base_color"], mt["specular"], mt["emission"],
-                   mt["specular_exponent"])
+                   mt["specular_exponent"], mt["refraction_index"],
+                   mt["dissolve"])
             mid = index.setdefault(key, len(mats))
             if mid == len(mats):
                 mats.append(key)
@@ -116,6 +138,8 @@ def build_scene(config: dict, models: Dict[str, dict], device,
         ks=_f32([k[1] for k in mats], device),
         ke=_f32([k[2] for k in mats], device),
         ns=_f32([k[3] for k in mats], device),
+        ni=_f32([k[4] for k in mats], device),
+        dissolve=_f32([k[5] for k in mats], device),
         lights={"type": torch.tensor([_TYPES[lt["type"]] for lt in lights],
                                      device=device),
                 "position": col("position", (0.0, 0.0, 0.0)),
@@ -129,4 +153,5 @@ def build_scene(config: dict, models: Dict[str, dict], device,
         cam_right=_f32(np.asarray(cam["right"], np.float32) * half_w, device),
         cam_up=_f32(np.asarray(cam["up"], np.float32) * half_h, device),
         cam_forward=_f32(cam["forward"], device),
-        width=w, height=h)
+        width=w, height=h,
+        env=None if env_hdr is None else _f32(decode_hdr(env_hdr), device))

@@ -11,16 +11,31 @@ A model is a dict: ``positions`` (V, 3) and ``normals`` (V, 3) float32,
 and ``submeshes``, a list of ``{"material": {...}, "tris": (T, 3) int32}``
 whose triangles index both arrays.  A material dict holds ``name``,
 ``base_color``, ``specular``, ``emission`` (3-tuples), ``specular_exponent``,
-``refraction_index`` and ``dissolve``.
+``refraction_index`` and ``dissolve``; a dielectric (glass) has
+``refraction_index`` > 0 and ``dissolve`` < 1.
+
+The seven meshes above are :data:`MODELS`.  A configuration that needs
+another brings it as a file of its own, ``scenegen/extra/<name>.py``,
+which defines ``make() -> dict`` (a model as above, pure numpy and
+deterministic; :func:`material`, :func:`from_parts` and
+:func:`uv_sphere` are there to build it); :func:`make_model` finds it by
+the name an instance gives.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import os
+import re
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["MODELS", "make_model"]
+__all__ = ["MODELS", "make_model", "material", "from_parts", "uv_sphere",
+           "load_generator"]
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def material(name: str, base_color=(0.0, 0.0, 0.0), specular=(0.0, 0.0, 0.0),
@@ -46,7 +61,7 @@ def _smooth_vertex_normals(pos: np.ndarray, tris: np.ndarray) -> np.ndarray:
     return (n / np.maximum(lens, 1e-20)).astype(np.float32)
 
 
-def _from_parts(parts: Sequence[Tuple[dict, np.ndarray, np.ndarray]]) -> dict:
+def from_parts(parts: Sequence[Tuple[dict, np.ndarray, np.ndarray]]) -> dict:
     """One model from (material, positions (V, 3), tris (T, 3)) parts that
     share one vertex array, with smooth synthesized normals."""
     all_pos: List[np.ndarray] = []
@@ -65,8 +80,8 @@ def _from_parts(parts: Sequence[Tuple[dict, np.ndarray, np.ndarray]]) -> dict:
             "submeshes": subs}
 
 
-def _uv_sphere(segments: int = 50, rings: int = 50,
-               radius: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+def uv_sphere(segments: int = 50, rings: int = 50,
+              radius: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
     """A UV sphere of radius ``radius`` about the origin, the layout of
     the reference's ``sphere.obj`` (a 50 x 50 Blender UV sphere)."""
     th = np.linspace(0.0, np.pi, rings + 1)
@@ -153,7 +168,7 @@ def _plane() -> dict:
     tris = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
     mat = material("None", base_color=(0.5, 0.5, 0.5), specular_exponent=30.0,
                    refraction_index=1.0)
-    return _from_parts([(mat, pos, tris)])
+    return from_parts([(mat, pos, tris)])
 
 
 def _plane_back() -> dict:
@@ -165,13 +180,13 @@ def _plane_back() -> dict:
     tris = np.array([[0, 1, 3], [0, 3, 2]], np.int32)
     mat = material("None", base_color=(1.0, 1.0, 0.5),
                    specular=(0.8, 0.8, 0.8), specular_exponent=32.0)
-    return _from_parts([(mat, pos, tris)])
+    return from_parts([(mat, pos, tris)])
 
 
 def _sphere() -> dict:
-    pos, tris = _uv_sphere(50, 50, 1.0)
+    pos, tris = uv_sphere(50, 50, 1.0)
     mat = material("None", base_color=(0.8, 0.8, 0.8), specular_exponent=32.0)
-    return _from_parts([(mat, pos, tris)])
+    return from_parts([(mat, pos, tris)])
 
 
 def _treefir() -> dict:
@@ -187,7 +202,7 @@ def _treefir() -> dict:
     for p, t in tiers:
         tier_tris.append(t + off)
         off += p.shape[0]
-    return _from_parts([
+    return from_parts([
         (bark,) + trunk,
         (leaves, np.concatenate([p for p, _ in tiers], axis=0),
          np.concatenate(tier_tris, axis=0)),
@@ -212,13 +227,13 @@ def _train() -> dict:
             parts.append((wheels,) + _cylinder((wx, 0.0, wz), 0.18, 0.08,
                                                segments=16))
     parts.append((cow,) + _cone((-1.05, 0.15, 0), 0.2, 0.35, segments=10))
-    return _from_parts(parts)
+    return from_parts(parts)
 
 
 def _dragon() -> dict:
     """The ~100k-triangle stand-in of dragon.obj: a closed displaced
     ellipsoid; dragon.mtl's Kd red, Ks 0.2, Ns 37.25."""
-    pos, tris = _uv_sphere(224, 224, 0.5)
+    pos, tris = uv_sphere(224, 224, 0.5)
     rng = np.random.RandomState(42)
     freqs = rng.normal(size=(12, 3)) * np.array([6.0, 9.0, 6.0])
     phases = rng.uniform(0, 2 * np.pi, size=12)
@@ -232,7 +247,7 @@ def _dragon() -> dict:
     mat = material("Dragon", base_color=(1.0, 0.0, 0.0),
                    specular=(0.2, 0.2, 0.2), specular_exponent=37.254902,
                    refraction_index=1.0)
-    return _from_parts([(mat, pos.astype(np.float32), tris)])
+    return from_parts([(mat, pos.astype(np.float32), tris)])
 
 
 def _coatball() -> dict:
@@ -241,13 +256,13 @@ def _coatball() -> dict:
                     specular=(0.9, 0.9, 0.9), specular_exponent=200.0)
     base = material("base", base_color=(0.2, 0.2, 0.22),
                     emission=(0.25, 0.1, 0.05))
-    ball_p, ball_t = _uv_sphere(80, 80, 0.5)
+    ball_p, ball_t = uv_sphere(80, 80, 0.5)
     ball_p[:, 1] += 0.62
     # no bottom cap: it would lie in the floor's plane, where exact ties
     # between two surfaces make the answer depend on the tie-break
     base_p, base_t = _cylinder((0, 0, 0), 0.45, 0.12, segments=32,
                                bottom_cap=False)
-    return _from_parts([(coat, ball_p, ball_t), (base, base_p, base_t)])
+    return from_parts([(coat, ball_p, ball_t), (base, base_p, base_t)])
 
 
 MODELS: Dict[str, Callable[[], dict]] = {
@@ -261,10 +276,23 @@ MODELS: Dict[str, Callable[[], dict]] = {
 }
 
 
-def make_model(name: str) -> dict:
-    """The named model (deterministic)."""
-    try:
-        return MODELS[name]()
-    except KeyError:
-        raise KeyError(f"no model {name!r}; the generators: {sorted(MODELS)}")
+def load_generator(folder: str, name: str):
+    """The module ``scenegen/<folder>/<name>.py``: a generator that a
+    configuration brings as a file of its own."""
+    path = os.path.join(HERE, folder, f"{name}.py")
+    if not (NAME.match(name) and os.path.isfile(path)):
+        raise KeyError(f"no generator {name!r}: scenegen/{folder}/{name}.py "
+                       f"is not there")
+    spec = importlib.util.spec_from_file_location(
+        f"bench_port_scenegen_{folder}_" + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
+
+def make_model(name: str) -> dict:
+    """The named model (deterministic): one of :data:`MODELS`, else the
+    one ``scenegen/extra/<name>.py`` makes."""
+    if name in MODELS:
+        return MODELS[name]()
+    return load_generator("extra", name).make()

@@ -169,7 +169,7 @@ def run(cell_name: str, seed: int, seconds: float, t0: float,
 
     from bench_port import harness as H
     from bench_port import yardstick
-    from bench_port.scenegen import make_model
+    from bench_port.scenegen import scene_inputs
 
     overrides = overrides or {}
     t_log = time.perf_counter()
@@ -182,10 +182,10 @@ def run(cell_name: str, seed: int, seconds: float, t0: float,
         dev = torch.device(device)
         times: Dict[str, float] = {}
         tg = time.perf_counter()
-        models = {i["model"]: None for i in config["instances"]}
-        models = {name: make_model(name) for name in models}
+        models, env_hdr = scene_inputs(config)
         times["generate_s"] = time.perf_counter() - tg
-        scene = H._port_scene(config, models, width, height, times)
+        scene = H._port_scene(config, models, width, height, times,
+                              env_hdr)
         cfg = H._render_config(cell, seed, width, height,
                                overrides.get("render_config"))
         tb = time.perf_counter()

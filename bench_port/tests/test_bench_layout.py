@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 from conftest import ROOT
+from newcell import add_glass_sky, copy_benchmark, probe
 
 from bench_port import harness
 
@@ -142,5 +143,36 @@ def test_a_new_cell_and_metric_are_new_files_only(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "3"
+    after = _digest(tmp_path / "bench_port")
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+def test_a_configuration_with_its_own_mesh_map_and_glass_is_new_files_only(
+        tmp_path):
+    """A copy of the benchmark gains, by new files and entries alone
+    (``tests/glass_sky/``), a configuration with a glass mesh of its own
+    and a generated sky map at 64 x 32, traffic with ``env_map`` and
+    ``enable_refraction``, and the cell's check; ``run_cell`` runs the cell
+    on the CPU at 16 x 16 through the program's plain tracer, and no file
+    the copy had changes."""
+    copy_benchmark(tmp_path)
+    before = _digest(tmp_path / "bench_port")
+    added = add_glass_sky(tmp_path)
+    assert {"bench_port/scenegen/extra/glass-ball.py",
+            "bench_port/scenegen/env/sky.py",
+            "bench_port/configs/glass-sky.json",
+            "bench_port/traffic/env-glass.json",
+            "bench_port/checks/glass-sky.env-glass.json"} <= set(added)
+    config = json.loads((tmp_path / "bench_port/configs/glass-sky.json")
+                        .read_text())
+    assert config["env_map"] == {"generator": "sky", "height": 32,
+                                 "width": 64}
+    traffic = json.loads((tmp_path / "bench_port/traffic/env-glass.json")
+                         .read_text())
+    assert traffic["render_config"] == {"env_map": True,
+                                        "enable_refraction": True}
+    (res,) = probe(tmp_path, [{"cell": "glass-sky.env-glass", "seed": 5,
+                               "size": [16, 16], "seconds": 0.3}])
+    assert res["correct"], res["check"]
     after = _digest(tmp_path / "bench_port")
     assert {k: v for k, v in after.items() if k in before} == before
